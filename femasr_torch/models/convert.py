@@ -1,0 +1,157 @@
+"""Parameter conversion: JAX (flax) params -> torch state dict, and
+reference-format checkpoint loading.
+
+`femasr_param_mapping` is this package's copy of the flax-path -> torch-key
+table of femasr_tpu/models/convert.py; `from_flax` applies it backwards:
+conv kernels (kh, kw, I, O) -> (O, I, kh, kw), dense kernels (I, O) ->
+(O, I), norm scale -> weight.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+# derived buffers that reference checkpoints carry beside the parameters
+_BUFFER_SUFFIXES = ('relative_position_index', 'attn_mask')
+
+
+def _conv_w(x: np.ndarray) -> np.ndarray:      # (kh, kw, I, O) -> (O, I, kh, kw)
+    return np.ascontiguousarray(x.transpose(3, 2, 0, 1))
+
+
+def _lin_w(x: np.ndarray) -> np.ndarray:       # (I, O) -> (O, I)
+    return np.ascontiguousarray(x.T)
+
+
+def _ident(x: np.ndarray) -> np.ndarray:
+    return np.asarray(x)
+
+
+Mapping_ = Dict[Tuple[str, ...], Tuple[str, Any]]
+
+
+def _resblock_entries(fp: Tuple[str, ...], tp: str, act_type: str) -> Mapping_:
+    m = {
+        fp + ('norm1', 'norm', 'scale'): (f'{tp}.conv.0.norm.weight', _ident),
+        fp + ('norm1', 'norm', 'bias'): (f'{tp}.conv.0.norm.bias', _ident),
+        fp + ('conv1', 'kernel'): (f'{tp}.conv.2.weight', _conv_w),
+        fp + ('conv1', 'bias'): (f'{tp}.conv.2.bias', _ident),
+        fp + ('norm2', 'norm', 'scale'): (f'{tp}.conv.3.norm.weight', _ident),
+        fp + ('norm2', 'norm', 'bias'): (f'{tp}.conv.3.norm.bias', _ident),
+        fp + ('conv2', 'kernel'): (f'{tp}.conv.5.weight', _conv_w),
+        fp + ('conv2', 'bias'): (f'{tp}.conv.5.bias', _ident),
+    }
+    if act_type == 'prelu':
+        m[fp + ('act1', 'alpha')] = (f'{tp}.conv.1.func.weight', _ident)
+        m[fp + ('act2', 'alpha')] = (f'{tp}.conv.4.func.weight', _ident)
+    return m
+
+
+def _conv_entries(fp: Tuple[str, ...], tp: str) -> Mapping_:
+    return {fp + ('kernel',): (f'{tp}.weight', _conv_w),
+            fp + ('bias',): (f'{tp}.bias', _ident)}
+
+
+def _swin_block_entries(fp: Tuple[str, ...], tp: str) -> Mapping_:
+    m: Mapping_ = {}
+    for n in ('norm1', 'norm2'):
+        m[fp + (n, 'scale')] = (f'{tp}.{n}.weight', _ident)
+        m[fp + (n, 'bias')] = (f'{tp}.{n}.bias', _ident)
+    m[fp + ('attn', 'relative_position_bias_table')] = (
+        f'{tp}.attn.relative_position_bias_table', _ident)
+    for sub, key in (('attn', 'qkv'), ('attn', 'proj'), ('mlp', 'fc1'),
+                     ('mlp', 'fc2')):
+        m[fp + (sub, key, 'kernel')] = (f'{tp}.{sub}.{key}.weight', _lin_w)
+        m[fp + (sub, key, 'bias')] = (f'{tp}.{sub}.{key}.bias', _ident)
+    return m
+
+
+def femasr_param_mapping(codebook_params, gt_resolution: int = 256,
+                         LQ_stage: bool = False, scale_factor: int = 4,
+                         act_type: str = 'silu', swin_depth: int = 6
+                         ) -> Mapping_:
+    """Flax path -> (torch key, flax-to-torch transform) for FeMaSRNet."""
+    eff_scale = scale_factor if LQ_stage else 1
+    scales = [int(p[0]) for p in codebook_params]
+    max_depth = int(math.log2(gt_resolution // scales[0]))
+    encode_depth = int(math.log2(gt_resolution // eff_scale // scales[0]))
+
+    m: Mapping_ = {}
+    enc = ('multiscale_encoder',)
+    m.update(_conv_entries(enc + ('in_conv',), 'multiscale_encoder.in_conv'))
+    idx = 0
+    for _ in range(encode_depth):
+        fb, tb = enc + (f'blocks_{idx}',), f'multiscale_encoder.blocks.{idx}'
+        m.update(_conv_entries(fb + ('conv',), f'{tb}.0'))
+        m.update(_resblock_entries(fb + ('res1',), f'{tb}.1', act_type))
+        m.update(_resblock_entries(fb + ('res2',), f'{tb}.2', act_type))
+        idx += 1
+    if LQ_stage:
+        fb, tb = enc + (f'blocks_{idx}',), f'multiscale_encoder.blocks.{idx}'
+        for j in range(4):
+            for k in range(swin_depth):
+                m.update(_swin_block_entries(
+                    fb + (f'swin_blks_{j}', 'residual_group', f'blocks_{k}'),
+                    f'{tb}.swin_blks.{j}.residual_group.blocks.{k}'))
+            m.update(_conv_entries(fb + (f'swin_blks_{j}', 'conv'),
+                                   f'{tb}.swin_blks.{j}.conv'))
+        idx += 1
+        for _ in range(2):
+            fb = enc + (f'blocks_{idx}',)
+            tb = f'multiscale_encoder.blocks.{idx}'
+            m.update(_conv_entries(fb + ('conv',), f'{tb}.1'))
+            m.update(_resblock_entries(fb + ('res1',), f'{tb}.2', act_type))
+            m.update(_resblock_entries(fb + ('res2',), f'{tb}.3', act_type))
+            idx += 1
+    for i in range(max_depth):
+        fb, tb = (f'decoder_group_{i}',), f'decoder_group.{i}.block'
+        m.update(_conv_entries(fb + ('conv',), f'{tb}.1'))
+        m.update(_resblock_entries(fb + ('res1',), f'{tb}.2', act_type))
+        m.update(_resblock_entries(fb + ('res2',), f'{tb}.3', act_type))
+    m.update(_conv_entries(('out_conv',), 'out_conv'))
+    for s in range(len(codebook_params)):
+        m[(f'quantize_group_{s}', 'embedding')] = (
+            f'quantize_group.{s}.embedding.weight', _ident)
+        m.update(_conv_entries((f'before_quant_group_{s}',),
+                               f'before_quant_group.{s}'))
+        m.update(_conv_entries((f'after_quant_group_{s}', 'conv'),
+                               f'after_quant_group.{s}.conv'))
+    return m
+
+
+def from_flax(params: Mapping[str, Any], codebook_params,
+              **arch_kwargs) -> Dict[str, torch.Tensor]:
+    """JAX params (nested dict of arrays) -> torch FeMaSRNet state dict.
+
+    arch_kwargs: gt_resolution, LQ_stage, scale_factor, act_type as for
+    femasr_param_mapping. Raises KeyError on a missing flax path.
+    """
+    sd = {}
+    for path, (key, to_torch) in femasr_param_mapping(
+            codebook_params, **arch_kwargs).items():
+        node = params
+        for p in path:
+            node = node[p]
+        sd[key] = torch.from_numpy(
+            to_torch(np.asarray(node, dtype=np.float32)).copy())
+    return sd
+
+
+def load_torch_checkpoint(path: str, param_key: Optional[str] = 'params'
+                          ) -> Dict[str, torch.Tensor]:
+    """Load a reference-format .pth ({'params': sd} or {'params_ema': sd}).
+
+    Derived buffers (relative_position_index, attn_mask) are dropped: the
+    port recomputes them.
+    """
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    if param_key is not None and param_key in ckpt:
+        ckpt = ckpt[param_key]
+    elif 'params_ema' in ckpt:
+        ckpt = ckpt['params_ema']
+    return {k: v for k, v in ckpt.items()
+            if not k.endswith(_BUFFER_SUFFIXES)}

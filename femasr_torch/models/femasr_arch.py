@@ -1,0 +1,246 @@
+"""FeMaSRNet in PyTorch (counterpart of femasr_tpu/models/femasr_arch.py).
+
+NCHW tensors, reference torch state-dict keys, one formulation per op. The
+last decoder level and out_conv run through the conv3 kernel (ResBlock
+convs with the GroupNorm-affine + SiLU prologue, out_conv with bias only),
+the placement of the JAX serving tail; every other conv is F.conv2d.
+Parameters stay float32; the compute dtype is that of the input.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence
+
+import torch
+from torch import nn
+
+from ..kernels.conv3 import conv3
+from ..ops.layers import CombineQuantBlock, Conv2d, ResBlock, Upsample
+from ..ops.quantize import VectorQuantizer
+from ..ops.swin import SwinLayers
+
+# resolution -> channel width (femasr_arch.py:244-252)
+CHANNEL_QUERY_DICT = {8: 256, 16: 256, 32: 256, 64: 256, 128: 128, 256: 64,
+                      512: 32}
+
+
+def EncoderDownBlock(in_ch: int, out_ch: int, norm_type: str,
+                     act_type: str) -> nn.Sequential:
+    """[Conv s2, ResBlock, ResBlock] (keys .0, .1, .2)."""
+    return nn.Sequential(
+        Conv2d(in_ch, out_ch, 3, 2, 1),
+        ResBlock(out_ch, out_ch, norm_type, act_type),
+        ResBlock(out_ch, out_ch, norm_type, act_type))
+
+
+def EncoderUpBlock(in_ch: int, out_ch: int, norm_type: str,
+                   act_type: str) -> nn.Sequential:
+    """[Upsample x2, Conv3, ResBlock, ResBlock] (keys .1, .2, .3)."""
+    return nn.Sequential(
+        Upsample(),
+        Conv2d(in_ch, out_ch, 3, 1, 1),
+        ResBlock(out_ch, out_ch, norm_type, act_type),
+        ResBlock(out_ch, out_ch, norm_type, act_type))
+
+
+class DecoderBlock(nn.Module):
+    """Upsample x2 -> Conv3 -> ResBlock x2 under `.block`.
+
+    kernel=True runs the ResBlocks through the conv3 kernel.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, norm_type: str = 'gn',
+                 act_type: str = 'silu', kernel: bool = False):
+        super().__init__()
+        self.block = nn.Sequential(
+            Upsample(),
+            Conv2d(in_ch, out_ch, 3, 1, 1),
+            ResBlock(out_ch, out_ch, norm_type, act_type, kernel=kernel),
+            ResBlock(out_ch, out_ch, norm_type, act_type, kernel=kernel))
+        self.kernel = kernel
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kernel:  # upsample and conv then emit channels_last
+            x = x.contiguous(memory_format=torch.channels_last)
+        return self.block(x)
+
+
+class MultiScaleEncoder(nn.Module):
+    """in_conv + stride-2 down blocks (+ SwinLayers + 2 up blocks in LQ)."""
+
+    def __init__(self, in_channel: int, max_depth: int, input_res: int = 256,
+                 norm_type: str = 'gn', act_type: str = 'silu',
+                 lq_stage: bool = True):
+        super().__init__()
+        ksz = 4  # k=4, pad 1: shrinks H and W by 1 (reference quirk)
+        ch = CHANNEL_QUERY_DICT[input_res]
+        self.in_conv = Conv2d(in_channel, ch, ksz, 1, 1)
+        blocks = []
+        res = input_res
+        for _ in range(max_depth):
+            out_ch = CHANNEL_QUERY_DICT[res // 2]
+            blocks.append(EncoderDownBlock(ch, out_ch, norm_type, act_type))
+            ch = out_ch
+            res //= 2
+        if lq_stage:
+            blocks.append(SwinLayers())
+            for _ in range(2):
+                out_ch = CHANNEL_QUERY_DICT[res * 2]
+                blocks.append(EncoderUpBlock(ch, out_ch, norm_type, act_type))
+                ch = out_ch
+                res *= 2
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self.in_conv(x)
+        outputs = []
+        for m in self.blocks:
+            x = m(x)
+            outputs.append(x)
+        return outputs
+
+
+class FeMaSRNet(nn.Module):
+    """FeMaSR generator (femasr_arch.py:214-479), serving forward.
+
+    codebook_params: [[scale, n_e, e_dim], ...] low -> high resolution;
+    release config [[32, 1024, 512]].
+    """
+
+    def __init__(self, codebook_params: Sequence[Sequence[int]],
+                 in_channel: int = 3, gt_resolution: int = 256,
+                 LQ_stage: bool = False, norm_type: str = 'gn',
+                 act_type: str = 'silu', scale_factor: int = 4):
+        super().__init__()
+        params = [[int(v) for v in p] for p in codebook_params]
+        self.codebook_scale = [p[0] for p in params]
+        self.gt_resolution = gt_resolution
+        self.LQ_stage = LQ_stage
+        self.scale_factor = scale_factor if LQ_stage else 1
+        self.max_depth = int(math.log2(gt_resolution // self.codebook_scale[0]))
+        encode_depth = int(math.log2(
+            gt_resolution // self.scale_factor // self.codebook_scale[0]))
+
+        self.multiscale_encoder = MultiScaleEncoder(
+            in_channel, encode_depth, gt_resolution // self.scale_factor,
+            norm_type, act_type, LQ_stage)
+
+        # the last decoder level and out_conv run through the conv3 kernel
+        # (gn + silu: its prologue is the GroupNorm affine + SiLU); no
+        # codebook may sit at that level's input
+        tail_res = gt_resolution // 2
+        assert tail_res not in self.codebook_scale, (
+            f'codebook scale {tail_res} falls on the conv3-kernel level')
+        kernel_tail = (norm_type.lower(), act_type.lower()) == ('gn', 'silu')
+        decoders = []
+        in_ch = None
+        for i in range(self.max_depth):
+            res = gt_resolution // 2 ** self.max_depth * 2 ** i
+            if in_ch is None:
+                in_ch = CHANNEL_QUERY_DICT[res]
+            out_ch = CHANNEL_QUERY_DICT[res * 2]
+            decoders.append(DecoderBlock(
+                in_ch, out_ch, norm_type, act_type,
+                kernel=kernel_tail and i == self.max_depth - 1))
+            in_ch = out_ch
+        self.decoder_group = nn.ModuleList(decoders)
+        self.out_conv = Conv2d(in_ch, 3, 3, 1, 1)
+
+        quantizers, before_quant, after_quant = [], [], []
+        for s, (scale, n_e, e_dim) in enumerate(params):
+            quantizers.append(VectorQuantizer(n_e, e_dim))
+            scale_in_ch = CHANNEL_QUERY_DICT[scale]
+            if s == 0:
+                before_in, comb_ch1, comb_ch2 = scale_in_ch, e_dim, 0
+            else:
+                before_in = scale_in_ch + CHANNEL_QUERY_DICT[scale]
+                comb_ch1, comb_ch2 = params[s - 1][2], e_dim
+            before_quant.append(Conv2d(before_in, e_dim, 1))
+            after_quant.append(CombineQuantBlock(comb_ch1, comb_ch2,
+                                                 scale_in_ch))
+        self.quantize_group = nn.ModuleList(quantizers)
+        self.before_quant_group = nn.ModuleList(before_quant)
+        self.after_quant_group = nn.ModuleList(after_quant)
+
+    def _out_conv(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3(x.contiguous(memory_format=torch.channels_last),
+                     self.out_conv.weight, self.out_conv.bias)
+
+    def encode_and_decode(self, x: torch.Tensor):
+        """x: (B, 3, H, W) in [0, 1], in the compute dtype.
+
+        Returns (out_img, codebook_loss, indices_list).
+        """
+        enc_feats = self.multiscale_encoder(x)
+        enc_feats = enc_feats[-3:] if self.LQ_stage else enc_feats[::-1]
+
+        codebook_losses, indices_list = [], []
+        quant_idx = 0
+        prev_dec_feat = prev_quant_feat = None
+        out = enc_feats[0]
+        for i in range(self.max_depth):
+            cur_res = self.gt_resolution // 2 ** self.max_depth * 2 ** i
+            if cur_res in self.codebook_scale:
+                feat = enc_feats[i]
+                if prev_dec_feat is not None:
+                    feat = torch.cat([feat, prev_dec_feat], dim=1)
+                feat = self.before_quant_group[quant_idx](feat)
+                z_quant, loss, indices = self.quantize_group[quant_idx](feat)
+                out = self.after_quant_group[quant_idx](z_quant,
+                                                        prev_quant_feat)
+                codebook_losses.append(loss)
+                indices_list.append(indices)
+                quant_idx += 1
+                prev_quant_feat = z_quant
+            elif self.LQ_stage:
+                out = out + enc_feats[i]
+            out = self.decoder_group[i](out)
+            prev_dec_feat = out
+
+        out_img = self._out_conv(out)
+        return out_img, sum(codebook_losses), indices_list
+
+    def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
+        """Decode a code-index map (B, H, W) to an f32 image (B, 3, H', W')."""
+        x = self.quantize_group[0].get_codebook_entry(indices)
+        x = self.after_quant_group[0](x)
+        for dec in self.decoder_group:
+            x = dec(x)
+        return self._out_conv(x)
+
+    def forward(self, x: torch.Tensor):
+        return self.encode_and_decode(x)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init (reference initializers) from an explicit generator.
+
+    Conv / linear weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    norms ones / zeros, relative-position tables N(0, 0.02) clipped at 2
+    std, codebooks U(-1/n_e, 1/n_e).
+    """
+    for name, p in model.named_parameters():
+        leaf = name.rsplit('.', 1)[-1]
+        owner = model.get_submodule(name.rsplit('.', 1)[0]) if '.' in name \
+            else model
+        if isinstance(owner, nn.Embedding):
+            n_e = p.shape[0]
+            vals = torch.rand(p.shape, generator=generator) * 2 - 1
+            p.copy_(vals / n_e)
+        elif isinstance(owner, nn.PReLU):
+            p.fill_(0.25)
+        elif leaf == 'relative_position_bias_table':
+            p.copy_((torch.randn(p.shape, generator=generator) * 0.02)
+                    .clamp(-0.04, 0.04))
+        elif isinstance(owner, (nn.Conv2d, nn.Linear)):
+            w = owner.weight
+            bound = 1.0 / math.sqrt(w[0].numel())
+            vals = torch.rand(p.shape, generator=generator) * 2 - 1
+            p.copy_(vals * bound)
+        elif leaf == 'weight':
+            p.fill_(1.0)
+        else:
+            p.fill_(0.0)
+    return model

@@ -1,0 +1,191 @@
+"""Conv-stack building blocks: norm / act / resblock / resize / combine.
+
+Counterpart of femasr_tpu/ops/layers.py (GroupNorm, NormLayer, ActLayer,
+ResBlock, upsample_nearest as Upsample, resize_nearest, CombineQuantBlock,
+and UpConv3 as the Upsample + Conv2d pair of the Sequentials). Tensors are
+NCHW; parameters stay float32 and are cast to the activation dtype at use,
+so one model serves in float32 or bfloat16. Submodule names follow the
+reference torch state-dict keys (`conv.0.norm`, `conv.2`, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.conv3 import conv3
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose float32 parameters are cast to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding)
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose float32 parameters are cast to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with float32 statistics in the E[x^2] - E[x]^2 form.
+
+    Matches femasr_tpu GroupNorm ('chanraw'): per-channel raw moments,
+    folded into groups, variance clamped at 0.
+    """
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
+        super().__init__()
+        assert num_channels % num_groups == 0, (num_channels, num_groups)
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def affine(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-(sample, channel) float32 (a, b) with norm(x) = x * a + b."""
+        b, c = x.shape[:2]
+        g = self.num_groups
+        xf = x.float()
+        m1 = xf.mean(dim=(2, 3))
+        m2 = xf.square().mean(dim=(2, 3))
+        mean = m1.view(b, g, c // g).mean(-1)
+        mean2 = m2.view(b, g, c // g).mean(-1)
+        var = (mean2 - mean.square()).clamp_min(0.0)
+        inv = torch.rsqrt(var + self.eps)
+        a = inv.repeat_interleave(c // g, 1) * self.weight
+        shift = self.bias - mean.repeat_interleave(c // g, 1) * a
+        return a, shift
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, shift = self.affine(x)
+        y = x.float() * a[:, :, None, None] + shift[:, :, None, None]
+        return y.to(x.dtype)
+
+
+class NormLayer(nn.Module):
+    """Norm switch: gn (32 groups, eps 1e-6) / none."""
+
+    def __init__(self, channels: int, norm_type: str = 'gn'):
+        super().__init__()
+        nt = norm_type.lower()
+        if nt == 'gn':
+            self.norm = GroupNorm(32, channels, eps=1e-6)
+        elif nt == 'none':
+            self.norm = nn.Identity()
+        else:
+            raise ValueError(f'Norm type {norm_type} not supported.')
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x)
+
+
+class ActLayer(nn.Module):
+    """Activation switch: relu / leakyrelu(0.2) / prelu / silu / gelu / none."""
+
+    def __init__(self, channels: int, act_type: str = 'leakyrelu'):
+        super().__init__()
+        at = act_type.lower()
+        if at not in ('relu', 'leakyrelu', 'prelu', 'silu', 'gelu', 'none'):
+            raise ValueError(f'activation type {act_type} not supported.')
+        self.act_type = at
+        if at == 'prelu':
+            self.func = nn.PReLU(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        at = self.act_type
+        if at == 'relu':
+            return F.relu(x)
+        if at == 'leakyrelu':
+            return F.leaky_relu(x, 0.2)
+        if at == 'prelu':
+            return F.prelu(x, self.func.weight.to(x.dtype))
+        if at == 'silu':
+            return F.silu(x)
+        if at == 'gelu':
+            return F.gelu(x, approximate='none' if x.dtype == torch.float32
+                          else 'tanh')
+        return x
+
+
+class ResBlock(nn.Module):
+    """[Norm, Act, Conv3, Norm, Act, Conv3] + skip (fema_utils.py:65-84).
+
+    kernel=True runs both convs through the conv3 kernel with the
+    GroupNorm normalize and SiLU folded into its prologue (the release
+    config, gn + silu); only the statistics are computed here. The input
+    is kept in channels_last memory so the kernel reads NHWC in place.
+    """
+
+    def __init__(self, in_channel: int, out_channel: int,
+                 norm_type: str = 'gn', act_type: str = 'leakyrelu',
+                 kernel: bool = False):
+        super().__init__()
+        self.kernel = kernel
+        if kernel:
+            assert (norm_type.lower(), act_type.lower()) == ('gn', 'silu'), (
+                'the conv3-kernel ResBlock needs norm_type=gn, act_type=silu')
+            assert in_channel == out_channel
+        self.conv = nn.Sequential(
+            NormLayer(in_channel, norm_type),
+            ActLayer(in_channel, act_type),
+            Conv2d(in_channel, out_channel, 3, 1, 1),
+            NormLayer(out_channel, norm_type),
+            ActLayer(out_channel, act_type),
+            Conv2d(out_channel, out_channel, 3, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.kernel:
+            return self.conv(x) + x
+        x = x.contiguous(memory_format=torch.channels_last)
+        norm1, conv1 = self.conv[0].norm, self.conv[2]
+        norm2, conv2 = self.conv[3].norm, self.conv[5]
+        a, b = norm1.affine(x)
+        res = conv3(x, conv1.weight, conv1.bias, scale=a, shift=b,
+                    pre_act='silu')
+        a, b = norm2.affine(res)
+        res = conv3(res, conv2.weight, conv2.bias, scale=a, shift=b,
+                    pre_act='silu')
+        return res + x
+
+
+class Upsample(nn.Module):
+    """Nearest x2 upsample (the reference's nn.Upsample slot in Sequentials)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.interpolate(x, scale_factor=2, mode='nearest')
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize with floor(out_idx * in / out) source indexing."""
+    h, w = x.shape[2:]
+    oh, ow = size
+    if (oh, ow) == (h, w):
+        return x
+    rows = torch.arange(oh, device=x.device) * h // oh
+    cols = torch.arange(ow, device=x.device) * w // ow
+    return x.index_select(2, rows).index_select(3, cols)
+
+
+class CombineQuantBlock(nn.Module):
+    """Concat (after nearest-resizing input2) then conv3 (fema_utils.py:87-99)."""
+
+    def __init__(self, in_ch1: int, in_ch2: int, out_channel: int):
+        super().__init__()
+        self.conv = Conv2d(in_ch1 + in_ch2, out_channel, 3, 1, 1)
+
+    def forward(self, input1: torch.Tensor,
+                input2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if input2 is not None:
+            input2 = resize_nearest(input2, tuple(input1.shape[2:]))
+            input1 = torch.cat([input1, input2], dim=1)
+        return self.conv(input1)
