@@ -42,6 +42,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument('--bucket', type=int, default=0,
                         help='>0: bucketed batched folder inference (pads '
                              'shapes to multiples of this)')
+    parser.add_argument('--int8_tail', action='store_true',
+                        help='run the last decoder level + out_conv in w8a8 '
+                             'int8 (checkpoint-free dynamic quantization)')
+    parser.add_argument('--int8_levels', type=int, default=1,
+                        help='with --int8_tail: how many decoder levels '
+                             '(from the output end) run int8 (1-3)')
+    parser.add_argument('--int8_enc_up', action='store_true',
+                        help='also quantize the LQ-encoder up blocks (skips '
+                             'the pre-quantizer convs so codebook indices '
+                             'stay float-exact)')
+    parser.add_argument('--int8_swin', action='store_true',
+                        help='quantize the swin qkv/proj/mlp linears w8a8 '
+                             '(may flip near-tie codebook indices, the same '
+                             'class as bf16 serving divergence)')
+    parser.add_argument('--int8_mlp', action='store_true',
+                        help='run the swin MLPs as the per-token int8 chain '
+                             '(fc1 + GELU emits int8 for fc2; wins over '
+                             '--int8_swin for the MLP; same index caveat)')
     parser.add_argument('--device', type=str, default='cuda')
     return parser.parse_args(argv)
 
@@ -55,7 +73,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     dtype = torch.bfloat16 if args.precision == 'bf16' else torch.float32
     sr = load_inferencer(args.weight, scale_factor=args.out_scale,
                          dtype=dtype, device=args.device,
-                         max_tile_batch=args.tile_batch)
+                         max_tile_batch=args.tile_batch,
+                         int8_tail=args.int8_tail,
+                         int8_levels=args.int8_levels,
+                         int8_enc_up=args.int8_enc_up,
+                         int8_swin=args.int8_swin, int8_mlp=args.int8_mlp)
 
     os.makedirs(args.output, exist_ok=True)
     if os.path.isfile(args.input):

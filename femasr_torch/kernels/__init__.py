@@ -5,10 +5,12 @@ plain PyTorch version of the same function (used for CPU tensors and as
 the reference on the card) and an integer `launches` count.
 """
 
-from . import conv3, vq_argmin, window_attention
+from . import (conv3, conv3_w8a8, matmul_w8a8, matmul_w8a8_q, vq_argmin,
+               window_attention)
 
 MODULES = {'conv3': conv3, 'window_attention': window_attention,
-           'vq_argmin': vq_argmin}
+           'vq_argmin': vq_argmin, 'matmul_w8a8': matmul_w8a8,
+           'matmul_w8a8_q': matmul_w8a8_q, 'conv3_w8a8': conv3_w8a8}
 
 
 def build_all() -> None:

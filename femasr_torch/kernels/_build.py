@@ -3,13 +3,14 @@
 Each `csrc/<name>.cu` is compiled with nvcc for sm_90a into its own shared
 library with a plain C interface and loaded with ctypes (no PyTorch headers,
 so a build takes seconds). Libraries go to `build/femasr_torch/` at the
-repository root and are rebuilt when the source's hash changes. A failed
-build raises.
+repository root and are rebuilt when the hash of the source and of the
+headers in `csrc/` changes. A failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import subprocess
@@ -38,8 +39,11 @@ def _nvcc() -> str:
 
 def _compile(name: str) -> str:
     src = os.path.join(CSRC, f'{name}.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, '*.cuh'))):
+        with open(path, 'rb') as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f'lib{name}_{digest}.so')
     if not os.path.exists(out):

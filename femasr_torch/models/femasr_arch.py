@@ -5,6 +5,10 @@ last decoder level and out_conv run through the conv3 kernel (ResBlock
 convs with the GroupNorm-affine + SiLU prologue, out_conv with bias only),
 the placement of the JAX serving tail; every other conv is F.conv2d.
 Parameters stay float32; the compute dtype is that of the input.
+
+The int8 serving lane (int8_tail, int8_levels, int8_enc_up, int8_swin,
+int8_mlp, as in the JAX FeMaSRNet) swaps convs and linears for their w8a8
+layers with the same parameters, so one state dict serves both lanes.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import torch
 from torch import nn
 
 from ..kernels.conv3 import conv3
-from ..ops.layers import CombineQuantBlock, Conv2d, ResBlock, Upsample
+from ..ops.layers import (CombineQuantBlock, Conv2d, Conv2dInt8, ResBlock,
+                          Upsample)
 from ..ops.quantize import VectorQuantizer
 from ..ops.swin import SwinLayers
 
@@ -34,30 +39,41 @@ def EncoderDownBlock(in_ch: int, out_ch: int, norm_type: str,
         ResBlock(out_ch, out_ch, norm_type, act_type))
 
 
+def _upconv(in_ch: int, out_ch: int, int8: bool) -> list:
+    """Nearest x2 upsample then conv3; int8: the upsample is materialized
+    and the conv is w8a8 (UpConv3(int8=True))."""
+    return [Upsample(), Conv2dInt8(in_ch, out_ch) if int8
+            else Conv2d(in_ch, out_ch, 3, 1, 1)]
+
+
 def EncoderUpBlock(in_ch: int, out_ch: int, norm_type: str,
-                   act_type: str) -> nn.Sequential:
-    """[Upsample x2, Conv3, ResBlock, ResBlock] (keys .1, .2, .3)."""
+                   act_type: str, int8: bool = False) -> nn.Sequential:
+    """[Upsample x2, Conv3, ResBlock, ResBlock] (keys .1, .2, .3); int8:
+    all three convs w8a8 (index-safe: these outputs only feed the
+    post-quantizer skips)."""
     return nn.Sequential(
-        Upsample(),
-        Conv2d(in_ch, out_ch, 3, 1, 1),
-        ResBlock(out_ch, out_ch, norm_type, act_type),
-        ResBlock(out_ch, out_ch, norm_type, act_type))
+        *_upconv(in_ch, out_ch, int8),
+        ResBlock(out_ch, out_ch, norm_type, act_type, int8=int8),
+        ResBlock(out_ch, out_ch, norm_type, act_type, int8=int8))
 
 
 class DecoderBlock(nn.Module):
     """Upsample x2 -> Conv3 -> ResBlock x2 under `.block`.
 
-    kernel=True runs the ResBlocks through the conv3 kernel.
+    kernel=True runs the ResBlocks through the conv3 kernel; int8=True
+    (DecoderBlockInt8) runs all three convs w8a8.
     """
 
     def __init__(self, in_ch: int, out_ch: int, norm_type: str = 'gn',
-                 act_type: str = 'silu', kernel: bool = False):
+                 act_type: str = 'silu', kernel: bool = False,
+                 int8: bool = False):
         super().__init__()
         self.block = nn.Sequential(
-            Upsample(),
-            Conv2d(in_ch, out_ch, 3, 1, 1),
-            ResBlock(out_ch, out_ch, norm_type, act_type, kernel=kernel),
-            ResBlock(out_ch, out_ch, norm_type, act_type, kernel=kernel))
+            *_upconv(in_ch, out_ch, int8),
+            ResBlock(out_ch, out_ch, norm_type, act_type, kernel=kernel,
+                     int8=int8),
+            ResBlock(out_ch, out_ch, norm_type, act_type, kernel=kernel,
+                     int8=int8))
         self.kernel = kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -71,7 +87,8 @@ class MultiScaleEncoder(nn.Module):
 
     def __init__(self, in_channel: int, max_depth: int, input_res: int = 256,
                  norm_type: str = 'gn', act_type: str = 'silu',
-                 lq_stage: bool = True):
+                 lq_stage: bool = True, int8_enc_up: bool = False,
+                 int8_swin: bool = False, int8_mlp: bool = False):
         super().__init__()
         ksz = 4  # k=4, pad 1: shrinks H and W by 1 (reference quirk)
         ch = CHANNEL_QUERY_DICT[input_res]
@@ -84,10 +101,12 @@ class MultiScaleEncoder(nn.Module):
             ch = out_ch
             res //= 2
         if lq_stage:
-            blocks.append(SwinLayers())
+            blocks.append(SwinLayers(int8_linears=int8_swin,
+                                     int8_mlp=int8_mlp))
             for _ in range(2):
                 out_ch = CHANNEL_QUERY_DICT[res * 2]
-                blocks.append(EncoderUpBlock(ch, out_ch, norm_type, act_type))
+                blocks.append(EncoderUpBlock(ch, out_ch, norm_type, act_type,
+                                             int8_enc_up))
                 ch = out_ch
                 res *= 2
         self.blocks = nn.ModuleList(blocks)
@@ -106,12 +125,21 @@ class FeMaSRNet(nn.Module):
 
     codebook_params: [[scale, n_e, e_dim], ...] low -> high resolution;
     release config [[32, 1024, 512]].
+
+    Serving-only int8 lane (femasr_tpu FeMaSRNet's flags): int8_tail runs
+    the last int8_levels decoder levels and out_conv in w8a8 (instead of
+    the conv3-kernel tail); int8_enc_up the LQ encoder's two up blocks;
+    int8_swin the Swin qkv / proj / MLP linears (per-tensor); int8_mlp the
+    Swin MLPs as the per-token int8 chain.
     """
 
     def __init__(self, codebook_params: Sequence[Sequence[int]],
                  in_channel: int = 3, gt_resolution: int = 256,
                  LQ_stage: bool = False, norm_type: str = 'gn',
-                 act_type: str = 'silu', scale_factor: int = 4):
+                 act_type: str = 'silu', scale_factor: int = 4,
+                 int8_tail: bool = False, int8_levels: int = 1,
+                 int8_enc_up: bool = False, int8_swin: bool = False,
+                 int8_mlp: bool = False):
         super().__init__()
         params = [[int(v) for v in p] for p in codebook_params]
         self.codebook_scale = [p[0] for p in params]
@@ -124,15 +152,17 @@ class FeMaSRNet(nn.Module):
 
         self.multiscale_encoder = MultiScaleEncoder(
             in_channel, encode_depth, gt_resolution // self.scale_factor,
-            norm_type, act_type, LQ_stage)
+            norm_type, act_type, LQ_stage, int8_enc_up, int8_swin, int8_mlp)
 
-        # the last decoder level and out_conv run through the conv3 kernel
-        # (gn + silu: its prologue is the GroupNorm affine + SiLU); no
-        # codebook may sit at that level's input
+        # without int8_tail the last decoder level and out_conv run through
+        # the conv3 kernel (gn + silu: its prologue is the GroupNorm affine
+        # + SiLU); no codebook may sit at that level's input
+        self.int8_tail = int8_tail
+        kernel_tail = (not int8_tail and (norm_type.lower(), act_type.lower())
+                       == ('gn', 'silu'))
         tail_res = gt_resolution // 2
-        assert tail_res not in self.codebook_scale, (
+        assert not kernel_tail or tail_res not in self.codebook_scale, (
             f'codebook scale {tail_res} falls on the conv3-kernel level')
-        kernel_tail = (norm_type.lower(), act_type.lower()) == ('gn', 'silu')
         decoders = []
         in_ch = None
         for i in range(self.max_depth):
@@ -142,10 +172,12 @@ class FeMaSRNet(nn.Module):
             out_ch = CHANNEL_QUERY_DICT[res * 2]
             decoders.append(DecoderBlock(
                 in_ch, out_ch, norm_type, act_type,
-                kernel=kernel_tail and i == self.max_depth - 1))
+                kernel=kernel_tail and i == self.max_depth - 1,
+                int8=int8_tail and i >= self.max_depth - int8_levels))
             in_ch = out_ch
         self.decoder_group = nn.ModuleList(decoders)
-        self.out_conv = Conv2d(in_ch, 3, 3, 1, 1)
+        self.out_conv = (Conv2dInt8(in_ch, 3) if int8_tail
+                         else Conv2d(in_ch, 3, 3, 1, 1))
 
         quantizers, before_quant, after_quant = [], [], []
         for s, (scale, n_e, e_dim) in enumerate(params):
@@ -164,6 +196,8 @@ class FeMaSRNet(nn.Module):
         self.after_quant_group = nn.ModuleList(after_quant)
 
     def _out_conv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_tail:
+            return self.out_conv(x)
         return conv3(x.contiguous(memory_format=torch.channels_last),
                      self.out_conv.weight, self.out_conv.bias)
 

@@ -61,18 +61,25 @@ class SRInferencer:
     plus the serving paths.
 
     state_dict: reference-key state dict; None gives a seeded (seed 0)
-    random init.
+    random init. int8_tail, int8_levels, int8_enc_up, int8_swin, int8_mlp:
+    the int8 serving lane of FeMaSRNet (same state dict).
     """
 
     def __init__(self, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  codebook_params: Sequence[Sequence[int]] = ((32, 1024, 512),),
                  scale_factor: int = 4, dtype: torch.dtype = torch.float32,
-                 max_tile_batch: int = 1, device='cuda'):
+                 max_tile_batch: int = 1, device='cuda',
+                 int8_tail: bool = False, int8_levels: int = 1,
+                 int8_enc_up: bool = False, int8_swin: bool = False,
+                 int8_mlp: bool = False):
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
         model = FeMaSRNet(codebook_params=[list(p) for p in codebook_params],
-                          LQ_stage=True, scale_factor=scale_factor)
+                          LQ_stage=True, scale_factor=scale_factor,
+                          int8_tail=int8_tail, int8_levels=int8_levels,
+                          int8_enc_up=int8_enc_up, int8_swin=int8_swin,
+                          int8_mlp=int8_mlp)
         if state_dict is None:
             init_weights(model, torch.Generator().manual_seed(0))
         else:
@@ -190,7 +197,8 @@ def _to_hwc(x: torch.Tensor) -> np.ndarray:
 def load_inferencer(weight_path: str, scale_factor: int = 4,
                     dtype: torch.dtype = torch.float32, device='cuda',
                     **kwargs) -> SRInferencer:
-    """SRInferencer from a reference-format torch .pth."""
+    """SRInferencer from a reference-format torch .pth (kwargs go to
+    SRInferencer: codebook_params, max_tile_batch, the int8 flags)."""
     resolve_device(device)
     sd = load_torch_checkpoint(weight_path)
     return SRInferencer(sd, scale_factor=scale_factor, dtype=dtype,

@@ -2,10 +2,13 @@
 
 Counterpart of femasr_tpu/ops/layers.py (GroupNorm, NormLayer, ActLayer,
 ResBlock, upsample_nearest as Upsample, resize_nearest, CombineQuantBlock,
-and UpConv3 as the Upsample + Conv2d pair of the Sequentials). Tensors are
-NCHW; parameters stay float32 and are cast to the activation dtype at use,
-so one model serves in float32 or bfloat16. Submodule names follow the
-reference torch state-dict keys (`conv.0.norm`, `conv.2`, ...).
+and UpConv3 as the Upsample + Conv2d pair of the Sequentials), plus the
+int8 serving layers (quantize_rows, Conv3Int8 as Conv2dInt8, DenseInt8 as
+LinearInt8, ResBlockInt8 as ResBlock(int8=True)). Tensors are NCHW;
+parameters stay float32 and are cast to the activation dtype at use, so
+one model serves in float32 or bfloat16. Submodule names follow the
+reference torch state-dict keys (`conv.0.norm`, `conv.2`, ...); the int8
+layers hold the same parameters as the float ones (checkpoint-free).
 """
 
 from __future__ import annotations
@@ -16,7 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels._w8a8 import quantize, scale_of
 from ..kernels.conv3 import conv3
+from ..kernels.conv3_w8a8 import conv3_w8a8
+from ..kernels.matmul_w8a8 import matmul_w8a8
+from ..kernels.matmul_w8a8_q import matmul_w8a8_q
 
 
 class Conv2d(nn.Conv2d):
@@ -34,6 +41,47 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8: (..., K) -> int8 codes + (..., 1) f32
+    scales max(max_k |x| / 127, 1e-12), round-half-even."""
+    s = scale_of(x.detach().abs().amax(dim=-1, keepdim=True))
+    return quantize(x, s), s
+
+
+class Conv2dInt8(nn.Conv2d):
+    """3x3 SAME conv in w8a8 int8 (the conv3_w8a8 kernel); same parameters
+    as Conv2d(in, out, 3, 1, 1). Serving only."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3_w8a8(x.contiguous(memory_format=torch.channels_last),
+                          self.weight, self.bias)
+
+
+class LinearInt8(nn.Linear):
+    """nn.Linear in w8a8 int8; same parameters as Linear. Serving only.
+
+    Two input forms, as DenseInt8:
+      - a float tensor: per-tensor activation scale (matmul_w8a8), output
+        in the input dtype;
+      - an (x_q int8, s_x f32 (..., 1)) pair: one link of the per-token
+        chain (matmul_w8a8_q), with an optional fused `act` and, with
+        out_int8, a re-quantized (y_q, s_y) output; otherwise out_dtype.
+    """
+
+    def forward(self, x, act: Optional[str] = None, out_int8: bool = False,
+                out_dtype: torch.dtype = torch.float32):
+        if isinstance(x, tuple):
+            x_q, s_x = x
+            return matmul_w8a8_q(x_q, s_x, self.weight, self.bias, act=act,
+                                 out_int8=out_int8, out_dtype=out_dtype)
+        if act is not None or out_int8:
+            raise ValueError('fused act / int8 output are chain-mode features')
+        return matmul_w8a8(x, self.weight, self.bias)
 
 
 class GroupNorm(nn.Module):
@@ -124,24 +172,32 @@ class ResBlock(nn.Module):
     GroupNorm normalize and SiLU folded into its prologue (the release
     config, gn + silu); only the statistics are computed here. The input
     is kept in channels_last memory so the kernel reads NHWC in place.
+
+    int8=True (ResBlockInt8) runs both convs through the conv3_w8a8 kernel;
+    the norms and activations stay float and are materialized.
     """
 
     def __init__(self, in_channel: int, out_channel: int,
                  norm_type: str = 'gn', act_type: str = 'leakyrelu',
-                 kernel: bool = False):
+                 kernel: bool = False, int8: bool = False):
         super().__init__()
+        assert not (kernel and int8), 'kernel and int8 are exclusive'
         self.kernel = kernel
         if kernel:
             assert (norm_type.lower(), act_type.lower()) == ('gn', 'silu'), (
                 'the conv3-kernel ResBlock needs norm_type=gn, act_type=silu')
             assert in_channel == out_channel
+
+        def conv(i, o):
+            return Conv2dInt8(i, o) if int8 else Conv2d(i, o, 3, 1, 1)
+
         self.conv = nn.Sequential(
             NormLayer(in_channel, norm_type),
             ActLayer(in_channel, act_type),
-            Conv2d(in_channel, out_channel, 3, 1, 1),
+            conv(in_channel, out_channel),
             NormLayer(out_channel, norm_type),
             ActLayer(out_channel, act_type),
-            Conv2d(out_channel, out_channel, 3, 1, 1))
+            conv(out_channel, out_channel))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.kernel:

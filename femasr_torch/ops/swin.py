@@ -3,7 +3,10 @@
 Counterpart of femasr_tpu/ops/swin.py (spatial layout only). Parameter
 names follow the reference torch keys (`swin_blks.{j}.residual_group.
 blocks.{k}.attn.qkv.weight`, ...). The attention core runs through the
-window-attention kernel; the qkv / proj / MLP linears stay nn.Linear.
+window-attention kernel; the qkv / proj / MLP linears are nn.Linear, or
+in the int8 serving lane LinearInt8: per-tensor w8a8 (int8_linears: qkv,
+proj and the MLP) and the per-token int8 chain for the MLP (int8_mlp,
+which wins over int8_linears for the MLP).
 The relative-position index and the shift mask are derived, not learned:
 they are non-persistent buffers, so the state dict holds parameters only.
 """
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.window_attention import window_attention
-from .layers import Conv2d, Linear
+from .layers import Conv2d, Linear, LinearInt8, quantize_rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,14 +100,25 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2; GELU is exact (erf) in f32, tanh otherwise."""
+    """fc1 -> GELU -> fc2; GELU is exact (erf) in f32, tanh otherwise.
 
-    def __init__(self, in_features: int, hidden_features: int):
+    int8: both linears per-tensor w8a8. chain: the per-token int8 chain,
+    quantize_rows -> fc1 with a fused tanh GELU and int8 output -> fc2 to
+    the input dtype (femasr_tpu/ops/swin.py Mlp, chain branch).
+    """
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 int8: bool = False, chain: bool = False):
         super().__init__()
-        self.fc1 = Linear(in_features, hidden_features)
-        self.fc2 = Linear(hidden_features, in_features)
+        lin = LinearInt8 if (int8 or chain) else Linear
+        self.chain = chain
+        self.fc1 = lin(in_features, hidden_features)
+        self.fc2 = lin(hidden_features, in_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.chain:
+            h = self.fc1(quantize_rows(x), act='gelu', out_int8=True)
+            return self.fc2(h, out_dtype=x.dtype)
         x = self.fc1(x)
         x = F.gelu(x, approximate='none' if x.dtype == torch.float32
                    else 'tanh')
@@ -115,7 +129,7 @@ class WindowAttention(nn.Module):
     """W-MSA with learned relative position bias (network_swinir.py:65-145)."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int],
-                 num_heads: int):
+                 num_heads: int, int8_linears: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
@@ -125,8 +139,9 @@ class WindowAttention(nn.Module):
             'relative_position_index',
             torch.from_numpy(relative_position_index(*window_size)),
             persistent=False)
-        self.qkv = Linear(dim, dim * 3)
-        self.proj = Linear(dim, dim)
+        lin = LinearInt8 if int8_linears else Linear
+        self.qkv = lin(dim, dim * 3)
+        self.proj = lin(dim, dim)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -151,7 +166,8 @@ class SwinTransformerBlock(nn.Module):
     """
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
-                 num_heads: int, window_size: int = 7, shift_size: int = 0):
+                 num_heads: int, window_size: int = 7, shift_size: int = 0,
+                 int8_linears: bool = False, int8_mlp: bool = False):
         super().__init__()
         if min(input_resolution) <= window_size:
             shift_size = 0
@@ -160,9 +176,9 @@ class SwinTransformerBlock(nn.Module):
         self.shift_size = shift_size
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, (window_size, window_size),
-                                    num_heads)
+                                    num_heads, int8_linears)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, 4 * dim)
+        self.mlp = Mlp(dim, 4 * dim, int8=int8_linears, chain=int8_mlp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C)."""
@@ -184,12 +200,14 @@ class BasicLayer(nn.Module):
     """depth x SwinTransformerBlock with alternating shift 0 / ws // 2."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
-                 depth: int, num_heads: int, window_size: int):
+                 depth: int, num_heads: int, window_size: int,
+                 int8_linears: bool = False, int8_mlp: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, input_resolution, num_heads,
                                  window_size,
-                                 0 if i % 2 == 0 else window_size // 2)
+                                 0 if i % 2 == 0 else window_size // 2,
+                                 int8_linears, int8_mlp)
             for i in range(depth)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -203,10 +221,12 @@ class RSTB(nn.Module):
     (network_swinir.py:419-482, resi_connection='1conv')."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
-                 depth: int, num_heads: int, window_size: int):
+                 depth: int, num_heads: int, window_size: int,
+                 int8_linears: bool = False, int8_mlp: bool = False):
         super().__init__()
         self.residual_group = BasicLayer(dim, input_resolution, depth,
-                                         num_heads, window_size)
+                                         num_heads, window_size,
+                                         int8_linears, int8_mlp)
         self.conv = Conv2d(dim, dim, 3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -219,11 +239,12 @@ class SwinLayers(nn.Module):
 
     def __init__(self, input_resolution: Tuple[int, int] = (32, 32),
                  embed_dim: int = 256, blk_depth: int = 6, num_heads: int = 8,
-                 window_size: int = 8):
+                 window_size: int = 8, int8_linears: bool = False,
+                 int8_mlp: bool = False):
         super().__init__()
         self.swin_blks = nn.ModuleList([
             RSTB(embed_dim, input_resolution, blk_depth, num_heads,
-                 window_size)
+                 window_size, int8_linears, int8_mlp)
             for _ in range(4)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def randomize(params, seed: int, std: float = 0.1):
-    """Replace every leaf of a flax param tree with seeded numpy values
-    (norm scales around 1, everything else around 0)."""
+    """Replace every leaf of a flax param tree (arrays, or shapes from
+    jax.eval_shape) with seeded numpy values (norm scales around 1,
+    everything else around 0)."""
     rng = np.random.default_rng(seed)
-    flat = flatten_dict(jax.tree_util.tree_map(np.asarray, params))
+    flat = flatten_dict(params)
     out = {}
     for path, v in flat.items():
         vals = rng.normal(size=v.shape).astype(np.float32) * std
