@@ -4,17 +4,21 @@
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases:
-  1. build the six CUDA kernels from femasr_torch/csrc (nvcc, in parallel);
+  1. build the six CUDA kernels from femasr_torch/csrc (nvcc, in parallel)
+     and count the tensor-core instructions in each library's SASS;
   2. hold each kernel against its plain PyTorch version at the shapes the
      x4 release model gives it for a 512x512 LR image, in f32 (TF32 off)
-     and bf16, and time kernel, plain version and one library call;
+     and bf16 (B1, B2: within one bf16 ulp, see
+     femasr_torch/kernels/tolerance.py), and time kernel, plain version and
+     one library call (convolutions: cuDNN's autotuned algorithm);
   3. serve a 512x512 (whole-image) and a 720x720 (tiled) image through
      `python -m femasr_torch.inference_cli` in bf16 with a seeded
      random-init release-config x4 model, once in the float lane (B1-B3)
      and once in the int8 lane (--int8_tail --int8_levels 3 --int8_enc_up
      --int8_swin --int8_mlp: B2-B6), counting kernel launches per lane,
      then compare one image in f32 with the kernels against the plain
-     versions, per lane;
+     versions, per lane, and the float lane in bf16 (kernels and plain
+     versions) against its f32 plain output;
   4. profile one warm 512px bf16 forward per lane (device time by kernel
      group);
   5. print a JSON line of per-kernel numbers, the card's name and power
@@ -29,6 +33,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -55,6 +60,10 @@ TPU_SOURCES = {
     'matmul_w8a8_q': 'femasr_tpu/ops/pallas/int8_dense.py:292',
     'conv3_w8a8': 'femasr_tpu/ops/pallas/int8_dense.py:437',
 }
+# kernels redesigned for the tensor cores since their port, by PR (their
+# earlier times stand in PERF.md)
+REDESIGNED = {'conv3': 3, 'window_attention': 3}
+BF16_PSNR_SLACK_DB = 0.5  # kernels vs plain versions, float lane in bf16
 TPU_FUNCTIONS = {
     'conv3': 'femasr_tpu/ops/pallas/ws2d_conv.py:conv3_ws2d',
     'window_attention':
@@ -111,10 +120,24 @@ def counting_off(*mods):
             m.launches = s
 
 
+@contextlib.contextmanager
+def cudnn_autotuned():
+    """cuDNN times its algorithms for each new shape and keeps the fastest,
+    rather than taking its heuristic's pick: the library time a kernel is
+    held to. time_ms's warm-up calls pay the autotuning."""
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
 # -- phase 2: each kernel against its plain version ------------------------
 
 def check_conv3(dev, results):
     from femasr_torch.kernels import conv3 as mod
+    from femasr_torch.kernels.tolerance import bf16_agreement
     from femasr_torch.ops.layers import GroupNorm
     g = torch.Generator(device=dev).manual_seed(1)
     b, c, h, w = 1, 64, 2112, 2112
@@ -125,55 +148,78 @@ def check_conv3(dev, results):
         gn.weight.uniform_(0.5, 1.5, generator=g)
         gn.bias.uniform_(-0.5, 0.5, generator=g)
     bound = 1.0 / (c * 9) ** 0.5
+    # label: (O, prologue, key prefix in the kernels line); the case with
+    # no prologue shows what the prologue costs
     cases = {
-        'res 64->64 + gn/silu prologue': (64, True),
-        'out_conv 64->3': (3, False),
+        'res 64->64 + gn/silu prologue': (64, True, ''),
+        'res 64->64, no prologue': (64, False, 'no_prologue_'),
+        'out_conv 64->3': (3, False, 'out_conv_'),
     }
-    entry = None
-    for label, (o, pre) in cases.items():
+    entry, extra = {}, {}
+    for label, (o, pre, key) in cases.items():
         wt = (torch.rand((o, c, 3, 3), generator=g, device=dev) * 2 - 1) * bound
         bias = (torch.rand((o,), generator=g, device=dev) * 2 - 1) * bound
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
             kw = {}
+            xa = x
             if pre:
                 a, s = gn.affine(x)
                 kw = dict(scale=a, shift=s, pre_act='silu')
+                xa = F.silu(x.float() * a[:, :, None, None]
+                            + s[:, :, None, None]).to(dtype)
             with counting_off(mod):
                 y = mod.conv3(x, wt, bias, **kw)
                 torch.cuda.synchronize()
                 ref = mod.conv3_plain(x, wt, bias, **kw)
-                err = (y.float() - ref.float()).abs().max().item()
-                ok = torch.allclose(y.float(), ref.float(), atol=tol,
-                                    rtol=tol)
+                if dtype == torch.float32:
+                    tol = '1e-4'
+                    err = (y - ref).abs().max().item()
+                    ok = torch.allclose(y, ref, atol=1e-4, rtol=1e-4)
+                else:
+                    # one flipped prologue rounding moves an output by at
+                    # most ulp(x_act) * max|w| <= 2^-7 max|x_act| max|w|
+                    atol = (2.0 ** -7 * xa.float().abs().max().item()
+                            * wt.abs().max().item())
+                    ok, err, beyond = bf16_agreement(y, ref, atol)
+                    tol = (f'one bf16 ulp, {beyond:.2e} of outputs beyond '
+                           f'it (<= 1e-3), by <= {atol:.2e}')
                 ms = time_ms(lambda: mod.conv3(x, wt, bias, **kw))
             plain_ms = time_ms(lambda: mod.conv3_plain(x, wt, bias, **kw))
-            xa = x
-            if pre:
-                xa = F.silu(x.float() * kw['scale'][:, :, None, None]
-                            + kw['shift'][:, :, None, None]).to(dtype)
-            wl, bl = wt.to(dtype), bias.to(dtype)
-            lib_ms = time_ms(lambda: F.conv2d(xa, wl, bl, padding=1))
+            wl = wt.to(dtype).contiguous(memory_format=torch.channels_last)
+            bl = bias.to(dtype)
+            # F.conv2d adds the bias in a pass of its own after cuDNN's
+            # convolution: timed with it (the function) and without
+            with cudnn_autotuned():
+                lib_ms = time_ms(lambda: F.conv2d(xa, wl, bl, padding=1))
+                conv_ms = time_ms(lambda: F.conv2d(xa, wl, None, padding=1))
             flops = 2.0 * b * h * w * c * o * 9
             bms, by = bound_ms(nbytes(x, y, wt, bias, kw.get('scale'),
                                       kw.get('shift')), flops, dtype)
             print(f'[conv3] {label} {str(dtype)[6:]}: max_abs_err={err:.3e} '
                   f'(tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} '
-                  f'library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})',
-                  flush=True)
+                  f'library_ms={lib_ms:.4f} (F.conv2d with bias, cuDNN '
+                  f'autotuned; without bias {conv_ms:.4f}) bound_ms={bms:.4f} '
+                  f'({by})', flush=True)
             require(ok, f'conv3 {label} {dtype}: kernel disagrees with plain '
                         f'(max abs err {err})')
-            if pre and dtype == torch.bfloat16:
-                entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                             dtype='bfloat16',
-                             shape='x (1,64,2112,2112) -> 64, gn+silu prologue')
-            del y, ref
-    results['conv3'] = entry
+            if dtype == torch.bfloat16:
+                nums = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            library_conv_only_ms=conv_ms, bound_ms=bms)
+                if key:
+                    extra.update({key + k: v for k, v in nums.items()})
+                else:
+                    entry = dict(nums, max_abs_err=err, bound_by=by,
+                                 dtype='bfloat16', share_beyond_one_ulp=beyond,
+                                 shape='x (1,64,2112,2112) -> 64, gn+silu '
+                                       'prologue')
+            del y, ref, xa
+    results['conv3'] = dict(entry, **extra)
 
 
 def check_window_attention(dev, results):
     from femasr_torch.kernels import window_attention as mod
+    from femasr_torch.kernels.tolerance import bf16_agreement
     from femasr_torch.ops.swin import shifted_window_mask
     g = torch.Generator(device=dev).manual_seed(2)
     b_, n, nh, hd = 1089, 64, 8, 32
@@ -184,17 +230,25 @@ def check_window_attention(dev, results):
     entry = None
     for with_mask in (False, True):
         m = mask if with_mask else None
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for dtype in (torch.float32, torch.bfloat16):
             qkv = qkv32.to(dtype)
-            q = qkv[..., :c] * hd ** -0.5
+            q = qkv[..., :c] * torch.tensor(hd ** -0.5, dtype=dtype)
             k, v = qkv[..., c:2 * c], qkv[..., 2 * c:]
             with counting_off(mod):
                 y = mod.window_attention(q, k, v, bias, m, nh)
                 torch.cuda.synchronize()
                 ref = mod.window_attention_plain(q, k, v, bias, m, nh)
-                err = (y.float() - ref.float()).abs().max().item()
-                ok = torch.allclose(y.float(), ref.float(), atol=tol,
-                                    rtol=tol)
+                if dtype == torch.float32:
+                    tol = '1e-5'
+                    err = (y - ref).abs().max().item()
+                    ok = torch.allclose(y, ref, atol=1e-5, rtol=1e-5)
+                else:
+                    # one flipped probability (p < 1, ulp(p) <= 2^-8) moves
+                    # an output by at most 2^-8 max|v|
+                    atol = 2.0 ** -8 * v.float().abs().max().item()
+                    ok, err, beyond = bf16_agreement(y, ref, atol)
+                    tol = (f'one bf16 ulp, {beyond:.2e} of outputs beyond '
+                           f'it (<= 1e-3), by <= {atol:.2e}')
                 ms = time_ms(lambda: mod.window_attention(q, k, v, bias, m,
                                                           nh))
             plain_ms = time_ms(lambda: mod.window_attention_plain(
@@ -219,7 +273,7 @@ def check_window_attention(dev, results):
             if with_mask and dtype == torch.bfloat16:
                 entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                             dtype='bfloat16',
+                             dtype='bfloat16', share_beyond_one_ulp=beyond,
                              shape='q,k,v (1089,64,256), 8 heads, mask '
                                    '(1089,64,64)')
     results['window_attention'] = entry
@@ -416,8 +470,10 @@ def check_conv3_w8a8(dev, results):
                 ms = time_ms(lambda: mod.conv3_w8a8(x, wt, bias))
             plain_ms = time_ms(lambda: mod.conv3_w8a8_plain(x, wt, bias),
                                reps=3, warm=1)
-            wl, bl = wt.to(dtype), bias.to(dtype)
-            ctx_ms = time_ms(lambda: F.conv2d(x, wl, bl, padding=1))
+            wl = wt.to(dtype).contiguous(memory_format=torch.channels_last)
+            bl = bias.to(dtype)
+            with cudnn_autotuned():
+                ctx_ms = time_ms(lambda: F.conv2d(x, wl, bl, padding=1))
             w_q, s_w = quantize_weight(wt, (1, 2, 3))
             bms, by = bound_ms(nbytes(x, y, w_q, s_w, bias) + 4,
                                2.0 * hw * hw * c * o * 9, torch.int8)
@@ -612,7 +668,59 @@ def f32_check(dev, lane, state_dict, img, whole):
                 f'boundary cases: {b}')
     info.update(index_agreement=agree, mean_abs_diff=mean_diff,
                 max_abs_diff=max_diff)
-    return out_k, info
+    return out_k, (out_p, idx_p[0]), info
+
+
+def psnr_db(a, b) -> float:
+    mse = (a - b).square().mean().item()
+    return float(10 * np.log10(1.0 / max(mse, 1e-12)))
+
+
+def bf16_check(dev, state_dict, img, whole, ref, idx_ref):
+    """The float lane's 512px image in bf16, once through the kernels and
+    once through the plain versions (which round at the same points), each
+    against the f32 plain output `ref` (codebook indices `idx_ref`). The
+    kernels may lose at most BF16_PSNR_SLACK_DB to the plain bf16 run."""
+    from femasr_torch import kernels
+    from femasr_torch.models import SRInferencer
+    from femasr_torch.models.inference import flip_pad
+
+    sr = SRInferencer(state_dict, device=dev, dtype=torch.bfloat16)
+    x = torch.from_numpy(img.transpose(2, 0, 1).copy())[None].to(dev)
+    pad = (whole // sr.wsz + 1) * sr.wsz - whole
+    xp = flip_pad(x, pad, pad).to(torch.bfloat16)
+    s4 = 4 * whole
+    runs = {}
+    with torch.inference_mode(), counting_off(*kernels.MODULES.values()):
+        for name, ctx in (('kernels', contextlib.nullcontext()),
+                          ('plain', plain_kernels())):
+            with ctx:
+                out, _, idx = sr.model(xp)
+            runs[name] = (out.float().clamp(0, 1)[:, :, :s4, :s4], idx[0])
+    sync(dev)
+    (out_k, idx_k), (out_p, idx_p) = runs['kernels'], runs['plain']
+    info = dict(psnr_kernels_db=psnr_db(out_k, ref),
+                psnr_plain_db=psnr_db(out_p, ref),
+                index_agreement=(idx_k == idx_p).float().mean().item(),
+                index_agreement_kernels_vs_f32=(
+                    idx_k == idx_ref).float().mean().item(),
+                index_agreement_plain_vs_f32=(
+                    idx_p == idx_ref).float().mean().item(),
+                mean_abs_diff=(out_k - out_p).abs().mean().item())
+    print(f'[main path] float lane bf16 vs f32 plain: PSNR kernels '
+          f'{info["psnr_kernels_db"]:.3f} dB, plain versions '
+          f'{info["psnr_plain_db"]:.3f} dB; kernels vs plain bf16: index '
+          f'agreement={info["index_agreement"]:.6f} (vs f32: kernels '
+          f'{info["index_agreement_kernels_vs_f32"]:.6f}, plain '
+          f'{info["index_agreement_plain_vs_f32"]:.6f}), output '
+          f'mean_abs_diff={info["mean_abs_diff"]:.3e}', flush=True)
+    require(torch.isfinite(out_k).all().item(), 'bf16 kernel output not '
+                                                'finite')
+    require(info['psnr_kernels_db'] >= info['psnr_plain_db']
+            - BF16_PSNR_SLACK_DB,
+            f'float lane bf16: the kernels lose more than '
+            f'{BF16_PSNR_SLACK_DB} dB to the plain versions: {info}')
+    return info
 
 
 def main_path(dev, work, whole: int = 512, tiled: int = 720):
@@ -648,9 +756,15 @@ def main_path(dev, work, whole: int = 512, tiled: int = 720):
         require(np.isfinite(out_bf16).all() and out_bf16.shape == (s4, s4, 3),
                 f'{lane} bf16 whole-image output {out_bf16.shape} not finite')
         del sr
-        outs[lane], info = f32_check(dev, lane, net.state_dict(), img, whole)
+        outs[lane], (ref, idx_ref), info = f32_check(dev, lane,
+                                                     net.state_dict(), img,
+                                                     whole)
         extra[lane] = dict(bf16_cli=stats, bf16_cli_warm=warm,
                            launches=counts[lane], f32=info)
+        if lane == 'float':
+            extra[lane]['bf16'] = bf16_check(dev, net.state_dict(), img,
+                                             whole, ref, idx_ref)
+        del ref
         torch.cuda.empty_cache()
     mse = (outs['int8'] - outs['float']).square().mean().item()
     psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
@@ -660,11 +774,13 @@ def main_path(dev, work, whole: int = 512, tiled: int = 720):
     return counts, extra
 
 
-KERNEL_GROUPS = (('conv3 kernel', ('conv3_kernel',)),
+# (group, substrings of the kernel's name): the port's six kernels first, by
+# their __global__ names in femasr_torch/csrc
+KERNEL_GROUPS = (('conv3 kernel', ('conv3_tc', 'conv3_ffma')),
                  ('conv3_w8a8 kernel', ('conv3_w8a8_kernel',)),
                  ('matmul_w8a8_q kernel', ('mm_w8a8_q_kernel',)),
                  ('matmul_w8a8 kernel', ('mm_w8a8_kernel',)),
-                 ('window_attention kernel', ('wattn_kernel',)),
+                 ('window_attention kernel', ('wattn_tc', 'wattn_f32')),
                  ('vq_argmin kernel', ('vq_kernel', 'code_norms')),
                  ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn')),
                  ('GEMM (linears)', ('gemm', 'cutlass', 'cublas', 'nvjet')),
@@ -710,6 +826,9 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
                 break
         else:
             groups['other'] += us
+    for name in LANES[lane][2]:
+        require(groups[f'{name} kernel'] > 0, f'profile: no device time '
+                f'matched the {name} kernel group on the {lane} lane')
     busy_ms = sum(groups.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(f'[profile] {lane} lane, 512px bf16 forward: wall {wall_ms:.3f} '
@@ -721,6 +840,23 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
         print(f'[profile]   top: {us / 1e3:9.3f} ms  {name[:90]}', flush=True)
     return {'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
             'groups_ms': {k: v / 1e3 for k, v in groups.items()}}
+
+
+def tensor_core_counts() -> dict:
+    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in the SASS
+    of each kernel library, from cuobjdump."""
+    from femasr_torch import kernels
+    from femasr_torch.kernels import _build
+    tool = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                        'bin', 'cuobjdump')
+    counts = {}
+    for name in kernels.MODULES:
+        sass = subprocess.run([tool, '-sass', _build.load(name)._name],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        ops = re.findall(r'\b(HMMA|HGMMA)\b', sass)
+        counts[name] = {op: ops.count(op) for op in ('HMMA', 'HGMMA')}
+    return counts
 
 
 def sync(dev) -> None:
@@ -759,6 +895,13 @@ def main() -> int:
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'[build] {name}: {line.strip()}', flush=True)
+    tc_counts = tensor_core_counts()
+    for name, c in tc_counts.items():
+        print(f'[build] {name}: tensor-core instructions in SASS {c}',
+              flush=True)
+    for name in REDESIGNED:
+        require(sum(tc_counts[name].values()) > 0,
+                f'{name}: no tensor-core instruction in its SASS')
 
     results = {}
     check_conv3(dev, results)
@@ -773,6 +916,9 @@ def main() -> int:
     for lane in LANES:
         extra[lane]['profile'] = profile_forward(dev, lane)
 
+    for name, pr in REDESIGNED.items():
+        print(f'[history] {name}: redesigned for the tensor cores in PR {pr}; '
+              f'its earlier times stand in PERF.md', flush=True)
     line = {'kernels': [], 'main_path': extra}
     for name in kernels.MODULES:
         r = results[name]
@@ -787,6 +933,7 @@ def main() -> int:
             max_abs_err=r['max_abs_err'], ms=r['ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
             bound_by=r['bound_by'], library_ms=r['library_ms'],
+            tensor_core_instructions=tc_counts[name],
             **{k: v for k, v in r.items() if k not in (
                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                 'library_ms')}))

@@ -4,6 +4,17 @@ Kernel: csrc/conv3.cu (replaces femasr_tpu/ops/pallas/ws2d_conv.py
 conv3_ws2d). `conv3` launches it for CUDA tensors and runs `conv3_plain`,
 the same function in plain PyTorch, for CPU tensors.
 
+Rounding points, as the JAX kernel's (ws2d_conv.py:156,235): the activated
+input pre_act(x * scale + shift) and the weight are rounded to x.dtype
+before the conv; the sums, the bias and the activation are f32, and the
+output is rounded to x.dtype. In f32 the roundings are no-ops.
+
+Routes on the card: bfloat16 at Ci = 64 with O = 64 or O <= 8 (the last
+decoder level and out_conv of the release model) runs the tensor-core
+kernel; float32, and bfloat16 at any other Ci and O, run the FFMA kernel,
+with the same rounding points in bf16. The f32 sums are true f32 (TF32
+would miss the f32 gates).
+
 Tensors are NCHW in shape and channels_last in memory (the kernel reads
 and writes NHWC in place).
 """
@@ -19,7 +30,9 @@ import torch.nn.functional as F
 from . import _build
 
 _ACTS = {None: 0, 'silu': 1, 'lrelu': 2}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# csrc/conv3.cu routes
+_FFMA_F32, _TC_BF16, _FFMA_BF16 = 0, 1, 2
 
 launches = 0
 
@@ -38,16 +51,17 @@ def conv3_plain(x: torch.Tensor, weight: torch.Tensor,
                 shift: Optional[torch.Tensor] = None,
                 pre_act: Optional[str] = None,
                 act: Optional[str] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, all arithmetic in f32.
+    """The kernel's function in plain PyTorch, arithmetic in f32.
 
-    y = act(conv3x3_SAME(pre_act(x * scale + shift), weight) + bias); the
-    zero padding applies after the prologue.
+    y = act(conv3x3_SAME(round(pre_act(x * scale + shift)), round(weight))
+    + bias), round() to x.dtype; the zero padding applies after the
+    prologue.
     """
     xf = x.float()
     if scale is not None:
         xf = xf * scale[:, :, None, None] + shift[:, :, None, None]
-        xf = _act(xf, pre_act)
-    y = F.conv2d(xf, weight.float(),
+        xf = _act(xf, pre_act).to(x.dtype).float()
+    y = F.conv2d(xf, weight.to(x.dtype).float(),
                  None if bias is None else bias.float(), padding=1)
     y = _act(y, act)
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
@@ -92,7 +106,20 @@ def conv3(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f'conv3: weight {tuple(weight.shape)} for Ci={ci}')
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError('conv3: x must be channels_last contiguous')
-    wk = weight.detach().float().permute(1, 2, 3, 0).contiguous()
+    if x.dtype == torch.float32:
+        route = _FFMA_F32
+    elif ci == 64 and (o == 64 or o <= 8) and x.data_ptr() % 16 == 0:
+        route = _TC_BF16
+    else:
+        route = _FFMA_BF16
+    if route == _TC_BF16:
+        # (9, OP, Ci) bf16, OP = 64 or 8 with zero rows past O
+        wk = weight.detach().to(x.dtype).permute(2, 3, 0, 1).reshape(9, o, ci)
+        wk = F.pad(wk, (0, 0, 0, (64 if o == 64 else 8) - o)).contiguous()
+    else:
+        # (Ci, 9, O) f32, rounded to x.dtype first
+        wk = weight.detach().to(x.dtype).float().permute(1, 2, 3, 0)
+        wk = wk.contiguous()
     bk = None if bias is None else bias.detach().float().contiguous()
     if scale is not None:
         scale = scale.float().contiguous()
@@ -110,7 +137,7 @@ def conv3(x: torch.Tensor, weight: torch.Tensor,
 
     err = _fn()(_build.ptr(x), _build.ptr(wk), p(bk), p(scale), p(shift),
                 _build.ptr(y), b, h, w, ci, o,
-                1 if pre_act == 'silu' else 0, _ACTS[act], _DTYPES[x.dtype],
+                1 if pre_act == 'silu' else 0, _ACTS[act], route,
                 _build.stream())
     _build.check(err, 'conv3 launch')
     global launches

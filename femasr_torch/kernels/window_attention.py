@@ -5,6 +5,14 @@ femasr_tpu/ops/pallas/window_attention.py window_attention_fused).
 `window_attention` launches it for CUDA tensors and runs
 `window_attention_plain`, the same function in plain PyTorch, for CPU
 tensors.
+
+Rounding points, as the JAX kernel's (window_attention.py:50): logits,
+bias and mask adds and the softmax are f32; p is normalised in f32 and
+rounded to q.dtype before p @ v; p @ v sums in f32 and the output is
+rounded to q.dtype. In f32 the roundings are no-ops.
+
+Routes on the card: bfloat16 runs the tensor-core kernel, float32 the FFMA
+kernel, whose sums are true f32 (TF32 would miss the f32 gate).
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor,
                            mask: Optional[torch.Tensor] = None,
                            num_heads: int = 8) -> torch.Tensor:
-    """softmax(q k^T + bias [+ mask[b % nW]]) v per window and head, f32."""
+    """softmax(q k^T + bias [+ mask[b % nW]]) v per window and head; f32
+    arithmetic with p rounded to q.dtype before p @ v."""
     b_, n, c = q.shape
     hd = c // num_heads
 
@@ -37,7 +46,7 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         nw = mask.shape[0]
         logits = (logits.view(b_ // nw, nw, num_heads, n, n)
                   + mask.float()[None, :, None]).view(b_, num_heads, n, n)
-    p = torch.softmax(logits, dim=-1)
+    p = torch.softmax(logits, dim=-1).to(q.dtype).float()
     out = (p @ heads(v)).transpose(1, 2).reshape(b_, n, c)
     return out.to(q.dtype)
 
@@ -65,7 +74,8 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T + bias [+ mask]) v over windows.
 
     q, k, v: (B_, N, C) per-window tokens, q pre-scaled by head_dim**-0.5;
-    they may be column slices of one packed (B_, N, 3C) tensor.
+    they may be column slices of one packed (B_, N, 3C) tensor (in bf16
+    with rows 16-byte aligned).
     bias: (nh, N, N) float32. mask: (nW, N, N) float32 or None; window b
     uses mask[b % nW]. Returns a new contiguous (B_, N, C) in q.dtype.
     """
@@ -97,6 +107,11 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError('window_attention: all tensors on one device')
     ldq, ldk, ldv = (_token_stride(q, 'q'), _token_stride(k, 'k'),
                      _token_stride(v, 'v'))
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or ld % 8
+            for t, ld in ((q, ldq), (k, ldk), (v, ldv))):
+        raise ValueError('window_attention: the bf16 kernel copies 16-byte '
+                         'chunks: q, k, v need 16-byte aligned rows')
     out = torch.empty((b_, n, c), dtype=q.dtype, device=q.device)
     err = _fn()(_build.ptr(q), _build.ptr(k), _build.ptr(v),
                 _build.ptr(bias),

@@ -149,7 +149,8 @@ class WindowAttention(nn.Module):
         b_, n, c = x.shape
         nh = self.num_heads
         qkv = self.qkv(x)
-        q = qkv[..., :c] * self.scale
+        # the scale rounded to the dtype first, as JAX's weakly typed scalar
+        q = qkv[..., :c] * torch.tensor(self.scale, dtype=qkv.dtype)
         k = qkv[..., c:2 * c]
         v = qkv[..., 2 * c:]
         bias = (self.relative_position_bias_table[

@@ -12,6 +12,7 @@ import torch
 
 from femasr_torch.kernels import (conv3, conv3_w8a8, matmul_w8a8,
                                   matmul_w8a8_q, vq_argmin, window_attention)
+from femasr_torch.kernels.tolerance import assert_bf16_close
 from femasr_torch.ops.swin import shifted_window_mask
 
 pytestmark = pytest.mark.cuda
@@ -27,37 +28,62 @@ def gen():
 
 
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-def test_conv3_kernel_matches_plain(gen, dtype, tol):
-    x = torch.randn(2, 64, 37, 70, generator=gen).cuda().to(dtype)
+                                       (torch.bfloat16, None)])
+@pytest.mark.parametrize('ci,outs', [(64, (64, 3)), (32, (32, 16))])
+def test_conv3_kernel_matches_plain(gen, dtype, tol, ci, outs):
+    # ragged H, W (not multiples of the 8x32 tile), B = 2; in bf16, Ci = 64
+    # with O = 64 or 3 takes the tensor-core kernel, the rest the FFMA one
+    x = torch.randn(2, ci, 37, 70, generator=gen).cuda().to(dtype)
     x = x.contiguous(memory_format=torch.channels_last)
     bias = torch.randn(64, generator=gen).cuda() * 0.04
-    scale = torch.rand(2, 64, generator=gen).cuda() + 0.5
-    shift = torch.randn(2, 64, generator=gen).cuda()
-    for o in (64, 3):
-        w = torch.randn(o, 64, 3, 3, generator=gen).cuda() * 0.04
-        for kw in ({}, dict(scale=scale, shift=shift, pre_act='silu',
-                            act='lrelu')):
+    scale = torch.rand(2, ci, generator=gen).cuda() + 0.5
+    shift = torch.randn(2, ci, generator=gen).cuda()
+    for o in outs:
+        w = torch.randn(o, ci, 3, 3, generator=gen).cuda() * 0.04
+        for kw in ({}, dict(scale=scale, shift=shift, pre_act='silu'),
+                   dict(scale=scale, shift=shift, pre_act='silu',
+                        act='lrelu')):
             out = conv3.conv3(x, w, bias[:o], **kw)
             ref = conv3.conv3_plain(x, w, bias[:o], **kw)
             assert out.is_contiguous(memory_format=torch.channels_last)
-            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
-                                       rtol=tol)
+            assert out.dtype == dtype and out.shape == (2, o, 37, 70)
+            if tol is not None:
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=tol, rtol=tol)
+                continue
+            xa = x.float()
+            if kw:
+                xa = torch.nn.functional.silu(
+                    xa * scale[:, :, None, None] + shift[:, :, None, None])
+            # one flipped input rounding: 2^-7 * max|x_act| * max|w|
+            assert_bf16_close(out, ref, 2.0 ** -7 * xa.abs().max().item()
+                              * w.abs().max().item())
 
 
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
-def test_window_attention_kernel_matches_plain(gen, dtype, tol):
-    qkv = torch.randn(8, 64, 768, generator=gen).cuda().to(dtype)
-    q = qkv[..., :256] * 32 ** -0.5
-    k, v = qkv[..., 256:512], qkv[..., 512:]
-    bias = torch.randn(8, 64, 64, generator=gen).cuda() * 0.1
-    mask = torch.from_numpy(shifted_window_mask(16, 16, 8, 4)).cuda()
+                                       (torch.bfloat16, None)])
+@pytest.mark.parametrize('b_,nh,side', [(8, 8, 16), (100, 8, 40),
+                                        (50, 2, 40)])
+def test_window_attention_kernel_matches_plain(gen, dtype, tol, b_, nh,
+                                               side):
+    # side 40: nW = 25 windows, so windows straddle the blocks' item runs
+    c = 32 * nh
+    qkv = torch.randn(b_, 64, 3 * c, generator=gen).cuda().to(dtype)
+    q = qkv[..., :c] * 32 ** -0.5
+    k, v = qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.randn(nh, 64, 64, generator=gen).cuda() * 0.1
+    mask = torch.from_numpy(shifted_window_mask(side, side, 8, 4)).cuda()
     for m in (None, mask):
-        out = window_attention.window_attention(q, k, v, bias, m, 8)
-        ref = window_attention.window_attention_plain(q, k, v, bias, m, 8)
-        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
-                                   rtol=tol)
+        out = window_attention.window_attention(q, k, v, bias, m, nh)
+        ref = window_attention.window_attention_plain(q, k, v, bias, m, nh)
+        assert out.dtype == dtype and out.shape == (b_, 64, c)
+        if tol is not None:
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+        else:
+            # one flipped p (< 1, ulp <= 2^-8): 2^-8 * max|v|
+            assert_bf16_close(out, ref,
+                              2.0 ** -8 * v.float().abs().max().item())
 
 
 def test_vq_argmin_kernel_matches_plain(gen):
@@ -74,11 +100,18 @@ def test_vq_argmin_kernel_matches_plain(gen):
 
 
 def test_wrappers_count_launches(gen):
-    before = conv3.launches
+    before = conv3.launches, window_attention.launches
     x = torch.randn(1, 64, 8, 8, generator=gen).cuda().contiguous(
         memory_format=torch.channels_last)
-    conv3.conv3(x, torch.zeros(3, 64, 3, 3, device='cuda'))
-    assert conv3.launches == before + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        conv3.conv3(x.to(dtype), torch.zeros(3, 64, 3, 3, device='cuda'))
+        q = torch.randn(2, 64, 64, generator=gen).cuda().to(dtype)
+        window_attention.window_attention(q, q, q, torch.zeros(
+            2, 64, 64, device='cuda'), None, 2)
+    # the plain versions (CPU tensors) launch nothing
+    conv3.conv3(x.cpu(), torch.zeros(3, 64, 3, 3))
+    assert (conv3.launches, window_attention.launches) == tuple(
+        b + 2 for b in before)
 
 
 def _w8a8_close(out, ref, dtype):

@@ -10,6 +10,10 @@ from flax.traverse_util import flatten_dict, unflatten_dict
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
+# the tier-1 run puts six pytest workers on one host: a torch thread pool
+# per worker as wide as the host oversubscribes its cores and slows every
+# worker, the JAX ones too
+torch.set_num_threads(2)
 
 
 def randomize(params, seed: int, std: float = 0.1):
