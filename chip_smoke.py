@@ -9,8 +9,9 @@ Phases:
   2. hold each kernel against its plain PyTorch version at the shapes the
      x4 release model gives it for a 512x512 LR image, in f32 (TF32 off)
      and bf16 (B1, B2: within one bf16 ulp, see
-     femasr_torch/kernels/tolerance.py), and time kernel, plain version and
-     one library call (convolutions: cuDNN's autotuned algorithm);
+     femasr_torch/kernels/tolerance.py; B6 bit for bit), and time kernel,
+     plain version and one library call (convolutions: cuDNN's autotuned
+     algorithm; B3 must beat cdist().argmin);
   3. serve a 512x512 (whole-image) and a 720x720 (tiled) image through
      `python -m femasr_torch.inference_cli` in bf16 with a seeded
      random-init release-config x4 model, once in the float lane (B1-B3)
@@ -20,7 +21,7 @@ Phases:
      versions, per lane, and the float lane in bf16 (kernels and plain
      versions) against its f32 plain output;
   4. profile one warm 512px bf16 forward per lane (device time by kernel
-     group);
+     group; in the int8 lane B6's launches and time per shape);
   5. print a JSON line of per-kernel numbers, the card's name and power
      limit, and last `{"ok": true, "device": {...}}`.
 
@@ -60,9 +61,19 @@ TPU_SOURCES = {
     'matmul_w8a8_q': 'femasr_tpu/ops/pallas/int8_dense.py:292',
     'conv3_w8a8': 'femasr_tpu/ops/pallas/int8_dense.py:437',
 }
-# kernels redesigned for the tensor cores since their port, by PR (their
-# earlier times stand in PERF.md)
-REDESIGNED = {'conv3': 3, 'window_attention': 3}
+# kernels redesigned since their port, and how (their earlier times stand
+# in PERF.md)
+REDESIGNED = {
+    'conv3': 'for the bf16 tensor cores',
+    'window_attention': 'for the bf16 tensor cores',
+    'vq_argmin': 'as a register-tiled f32 FFMA GEMM with the argmin fused '
+                 'in (no tensor cores by design: TF32 would flip near-tie '
+                 'indices)',
+    'conv3_w8a8': 'for the int8 tensor cores (implicit GEMM, mma.sync s8)',
+}
+# kernels whose SASS must hold tensor-core instructions
+TENSOR_CORE_KERNELS = ('conv3', 'window_attention', 'conv3_w8a8')
+TC_OPS = ('HMMA', 'HGMMA', 'IMMA', 'IGMMA')
 BF16_PSNR_SLACK_DB = 0.5  # kernels vs plain versions, float lane in bf16
 TPU_FUNCTIONS = {
     'conv3': 'femasr_tpu/ops/pallas/ws2d_conv.py:conv3_ws2d',
@@ -290,6 +301,16 @@ def check_vq_argmin(dev, results):
         torch.cuda.synchronize()
         ref = mod.vq_argmin_plain(z, cb)
         ms = time_ms(lambda: mod.vq_argmin(z, cb))
+        # the codebook split into ranges (wave quantization): the wrapper's
+        # choice against each count
+        by_splits = {sp: time_ms(lambda: mod.vq_argmin(z, cb, splits=sp))
+                     for sp in (1, 2, 4, 8)}
+    slots = mod.slots(z.device)
+    splits, per = mod.choose_splits(n, k, slots)
+    print(f'[vq_argmin] {slots} block slots; chosen {splits} code ranges of '
+          f'{per} 128-code tiles; ms by ranges: '
+          + ', '.join(f'{sp}: {t:.4f}' for sp, t in by_splits.items()),
+          flush=True)
     plain_ms = time_ms(lambda: mod.vq_argmin_plain(z, cb))
     lib_ms = time_ms(lambda: torch.cdist(z, cb).argmin(1))
     diff = (idx != ref).nonzero().flatten()
@@ -320,10 +341,13 @@ def check_vq_argmin(dev, results):
     print(f'[vq_argmin] bf16 tokens: index agreement={agree_b:.6f}',
           flush=True)
     require(agree_b >= 0.9999, f'vq_argmin bf16 agreement {agree_b}')
+    require(ms < lib_ms, f'vq_argmin ({ms} ms) loses to cdist().argmin '
+                         f'({lib_ms} ms)')
     results['vq_argmin'] = dict(
         max_abs_err=dist_err, index_agreement=agree, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-        dtype='float32', shape='z (69696,512) x codebook (1024,512)')
+        dtype='float32', shape='z (69696,512) x codebook (1024,512)',
+        splits=splits, ms_by_splits=by_splits)
 
 
 def agree_w8a8(y, ref) -> tuple:
@@ -451,7 +475,7 @@ def check_matmul_w8a8_q(dev, results):
 
 def check_conv3_w8a8(dev, results):
     from femasr_torch.kernels import conv3_w8a8 as mod
-    from femasr_torch.kernels._w8a8 import quantize_weight
+    from femasr_torch.kernels._w8a8 import quantize_weight, tensor_scale
     g = torch.Generator(device=dev).manual_seed(6)
     entry = None
     for label, (hw, c, o) in CONV_CASES.items():
@@ -477,17 +501,26 @@ def check_conv3_w8a8(dev, results):
             w_q, s_w = quantize_weight(wt, (1, 2, 3))
             bms, by = bound_ms(nbytes(x, y, w_q, s_w, bias) + 4,
                                2.0 * hw * hw * c * o * 9, torch.int8)
-            print(f'[conv3_w8a8] {label} {str(dtype)[6:]}: max_abs_err='
-                  f'{err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} '
+            # the wrapper's max|x| pass (one reduction), inside ms
+            scale_ms = time_ms(lambda: tensor_scale(x))
+            route = ('tensor cores' if mod.route_of(c, o, x.data_ptr())
+                     == mod.TC else 'dp4a')
+            print(f'[conv3_w8a8] {label} {str(dtype)[6:]} ({route}): '
+                  f'max_abs_err={err:.3e} ms={ms:.4f} (of which the max|x| '
+                  f'pass {scale_ms:.4f}) plain_ms={plain_ms:.4f} '
                   f'library_ms=null (no PyTorch call computes an int8 conv; '
                   f'bf16/f32 F.conv2d for context: {ctx_ms:.4f}) '
                   f'bound_ms={bms:.4f} ({by})', flush=True)
-            require(ok, f'conv3_w8a8 {label} {dtype}: kernel disagrees with '
-                        f'plain (max abs err {err})')
+            # the integer sums are exact and the epilogue runs the plain
+            # version's f32 operations: equal bit for bit
+            require(ok and err == 0.0, f'conv3_w8a8 {label} {dtype}: kernel '
+                                       f'disagrees with plain (max abs err '
+                                       f'{err})')
             if label == next(iter(CONV_CASES)) and dtype == torch.bfloat16:
                 entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=None, context_conv2d_ms=ctx_ms,
-                             bound_ms=bms, bound_by=by, dtype='bfloat16',
+                             max_abs_pass_ms=scale_ms, bound_ms=bms,
+                             bound_by=by, dtype='bfloat16',
                              shape='x (1,64,2112,2112) -> 64')
             del y, ref, x
         del x32
@@ -777,11 +810,12 @@ def main_path(dev, work, whole: int = 512, tiled: int = 720):
 # (group, substrings of the kernel's name): the port's six kernels first, by
 # their __global__ names in femasr_torch/csrc
 KERNEL_GROUPS = (('conv3 kernel', ('conv3_tc', 'conv3_ffma')),
-                 ('conv3_w8a8 kernel', ('conv3_w8a8_kernel',)),
+                 ('conv3_w8a8 kernel', ('conv3_w8a8_tc', 'conv3_w8a8_dp4a')),
                  ('matmul_w8a8_q kernel', ('mm_w8a8_q_kernel',)),
                  ('matmul_w8a8 kernel', ('mm_w8a8_kernel',)),
                  ('window_attention kernel', ('wattn_tc', 'wattn_f32')),
-                 ('vq_argmin kernel', ('vq_kernel', 'code_norms')),
+                 ('vq_argmin kernel', ('vq_tile_argmin', 'vq_merge',
+                                       'code_norms')),
                  ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn')),
                  ('GEMM (linears)', ('gemm', 'cutlass', 'cublas', 'nvjet')),
                  ('reduce (norm stats)', ('reduce',)),
@@ -790,8 +824,50 @@ KERNEL_GROUPS = (('conv3 kernel', ('conv3_tc', 'conv3_ffma')),
                  ('elementwise', ('elementwise', 'vectorized')))
 
 
+@contextlib.contextmanager
+def recording_conv3_w8a8(calls: list):
+    """Append (B, Ci, H, W, O, dtype) of each conv3_w8a8 call of the model,
+    in call order."""
+    from femasr_torch.ops import layers
+    fn = layers.conv3_w8a8
+
+    def rec(x, weight, bias=None, act=None):
+        calls.append((*x.shape, weight.shape[0], str(x.dtype)[6:]))
+        return fn(x, weight, bias, act)
+    layers.conv3_w8a8 = rec
+    try:
+        yield
+    finally:
+        layers.conv3_w8a8 = fn
+
+
+def conv3_w8a8_by_shape(calls: list, events: list) -> list:
+    """Launches and device time per shape of one forward: the profiled
+    conv3_w8a8 kernels, in start order, matched to the recorded calls."""
+    require(len(calls) == len(events), f'conv3_w8a8: {len(calls)} calls but '
+                                       f'{len(events)} profiled kernels')
+    shapes = {}
+    for call, e in zip(calls, events):
+        d = shapes.setdefault(call, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.elapsed_us() / 1e3
+    rows = []
+    for (b, ci, h, w, o, dt), (n, total) in shapes.items():
+        size = 2 if dt == 'bfloat16' else 4
+        bms, by = bound_ms(b * h * w * (ci + o) * size + 9 * ci * o,
+                           2.0 * b * h * w * ci * o * 9, torch.int8)
+        rows.append(dict(shape=f'({b},{ci},{h},{w}) -> {o} {dt}', launches=n,
+                         ms=total / n, total_ms=total, bound_ms=bms,
+                         bound_by=by))
+        print(f'[profile]   conv3_w8a8 x ({b},{ci},{h},{w}) -> {o} {dt}: '
+              f'{n} launches, {total / n:.4f} ms each, {total:.3f} ms in '
+              f'all (bound {bms:.4f} ms, {by})', flush=True)
+    return rows
+
+
 def profile_forward(dev, lane: str, reps: int = 3) -> dict:
-    """Device-time breakdown of one warm 512px bf16 whole-image forward."""
+    """Device-time breakdown of one warm 512px bf16 whole-image forward;
+    in the int8 lane also B6's launches and time per shape."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -808,11 +884,14 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
         sr.run_padded(x)
     sync(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    calls = []
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            recording_conv3_w8a8(calls):
         sr.run_padded(x)
         sync(dev)
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern.sort(key=lambda e: e.time_range.start)
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups['other'] = 0.0
     by_name = {}
@@ -838,13 +917,18 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
         print(f'[profile]   {gname:26s} {us / 1e3:9.3f} ms', flush=True)
     for name, us in top:
         print(f'[profile]   top: {us / 1e3:9.3f} ms  {name[:90]}', flush=True)
-    return {'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
-            'groups_ms': {k: v / 1e3 for k, v in groups.items()}}
+    out = {'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+           'groups_ms': {k: v / 1e3 for k, v in groups.items()}}
+    if calls:
+        out['conv3_w8a8_by_shape'] = conv3_w8a8_by_shape(
+            calls, [e for e in kern if 'conv3_w8a8_' in e.name])
+    return out
 
 
 def tensor_core_counts() -> dict:
-    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in the SASS
-    of each kernel library, from cuobjdump."""
+    """Tensor-core instructions in the SASS of each kernel library, from
+    cuobjdump: HMMA / IMMA (mma.sync, float / integer), HGMMA / IGMMA
+    (wgmma)."""
     from femasr_torch import kernels
     from femasr_torch.kernels import _build
     tool = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
@@ -854,8 +938,8 @@ def tensor_core_counts() -> dict:
         sass = subprocess.run([tool, '-sass', _build.load(name)._name],
                               capture_output=True, text=True,
                               check=True).stdout
-        ops = re.findall(r'\b(HMMA|HGMMA)\b', sass)
-        counts[name] = {op: ops.count(op) for op in ('HMMA', 'HGMMA')}
+        ops = re.findall(r'\b(' + '|'.join(TC_OPS) + r')\b', sass)
+        counts[name] = {op: ops.count(op) for op in TC_OPS}
     return counts
 
 
@@ -899,7 +983,7 @@ def main() -> int:
     for name, c in tc_counts.items():
         print(f'[build] {name}: tensor-core instructions in SASS {c}',
               flush=True)
-    for name in REDESIGNED:
+    for name in TENSOR_CORE_KERNELS:
         require(sum(tc_counts[name].values()) > 0,
                 f'{name}: no tensor-core instruction in its SASS')
 
@@ -916,9 +1000,9 @@ def main() -> int:
     for lane in LANES:
         extra[lane]['profile'] = profile_forward(dev, lane)
 
-    for name, pr in REDESIGNED.items():
-        print(f'[history] {name}: redesigned for the tensor cores in PR {pr}; '
-              f'its earlier times stand in PERF.md', flush=True)
+    for name, how in REDESIGNED.items():
+        print(f'[history] {name}: redesigned {how}; its earlier times stand '
+              f'in PERF.md', flush=True)
     line = {'kernels': [], 'main_path': extra}
     for name in kernels.MODULES:
         r = results[name]

@@ -13,37 +13,418 @@
 //
 // What bounds it on the H100: at 2112^2 x 64 -> 64 the conv does 329 G int8
 // operations on 1.14 GB of bf16 traffic (one read, one write), ~290 per
-// byte: below the int8 tensor cores' ridge, so a tensor-core version would
-// be bound by device memory (~0.34 ms). This first version multiplies with
-// __dp4a on the CUDA cores (4 MACs per instruction, ~130 TOPS), so it is
-// bound by those operations, several times above the memory bound; an
-// implicit-GEMM mma.sync / wgmma s8 version is later work.
+// byte: below the int8 tensor cores' ridge (~590), so on the tensor cores
+// it is bound by device memory (~0.34 ms).
 //
-// Design: the tiling of csrc/conv3.cu. One block computes an 8x32 pixel
-// tile for 4*OPT output channels. Input channels are swept in chunks of 32:
-// the (8+2)x(32+2) haloed input chunk is quantized while it is staged
-// (round-half-even of a true IEEE division, as jnp.round(x / s_x)) into
-// shared memory as int8 with each pixel's 32 channels contiguous, zero
-// outside the image or past Ci; the chunk's weights (int8, laid out
-// (9, O, Ci) by the wrapper) beside it. Each thread keeps 4 pixels x OPT
-// outputs of int32 sums in registers and reads 16 channels of a pixel or a
-// weight row per shared load. The epilogue keeps the reference's
-// association, acc * (s_x * s_w[o]) then + bias, with _rn intrinsics so
-// nvcc cannot fuse them into one FMA. Output is written in the input dtype.
+// Tensor cores (conv3_w8a8_tc, every Ci that is a multiple of 64 with O a
+// multiple of 64 or O <= 8: all convs of the int8 lane): implicit GEMM by
+// mma.sync m16n8k32 s8 x s8 -> s32. A block computes an 8x32 pixel tile
+// for one 64-channel tile of O (out_conv: one n8 tile, zero weights past
+// O); the O tile is the fastest-varying part of the block index, so the O
+// tiles of one pixel tile read its input from L2. M = the tile's pixels
+// (one output row of 32 per warp, two m16 tiles), N = 64 output channels
+// (eight n8 tiles), K = 9 taps x Ci, swept in chunks of 64 input channels.
+// Per chunk the block copies the chunk's weights, packed (O tiles, Ci
+// chunks, 9, 64, 64) int8 by the wrapper so that each is one contiguous
+// 36 KB slab, into shared memory by 16-byte cp.async, and meanwhile loads
+// the haloed 10x34 x 64-channel input, quantizes it and stores it as int8.
+// The quantize is round-half-even of the correctly rounded x / s_x, as
+// torch.round(torch.div(x, s_x)): the quotient comes from the correctly
+// rounded reciprocal of s_x, one remainder step to a faithful quotient and
+// Markstein's q + (x - s_x q) / s_x step to the correctly rounded one,
+// without the IEEE division's per-value slow-path check. Shared rows are
+// 64 bytes (one pixel or one output channel of the chunk) with the 16-byte
+// chunk index XORed with bits 1-2 of the row, so the eight row addresses
+// of every ldmatrix fall on distinct banks; each tap is a shifted view of
+// the one haloed tile, so no im2col copy is made. The epilogue keeps the
+// reference's association, acc * (s_x * s_w[o]) then + bias, with _rn
+// intrinsics so nvcc cannot fuse them into one FMA, then the activation,
+// and stages each warp's 32 x 64 outputs through shared memory so the NHWC
+// stores are 16 bytes wide.
+// What holds it above its byte bound: a block stages and then multiplies,
+// and its MMA warps wait on ldmatrix and mma.sync latency; the 58 KB of
+// shared memory and 128 registers let two blocks share an SM, so one
+// block's staging overlaps the other's MMAs, and the 16 warps per SM are
+// what hides the latency. Two persistent designs were slower at every
+// main-path shape: blocks that walk many tiles with the weights resident
+// (more registers, spills), and B1's warp specialisation (8 producer warps
+// beside 8 MMA warps in one 512-thread block: half the MMA warps per SM).
+// The next step is wgmma, whose B operand the tensor cores read from
+// shared memory once per warpgroup.
+//
+// dp4a (conv3_w8a8_dp4a, every other shape): __dp4a on the CUDA cores,
+// the same arithmetic. One block computes an 8x32 pixel tile for 4*OPT
+// output channels. Input channels are swept in chunks of 32: the
+// (8+2)x(32+2) haloed input chunk is quantized while it is staged (a true
+// IEEE division) into shared memory as int8, each pixel's 32 channels
+// contiguous, zero outside the image or past Ci; the chunk's weights
+// (int8, (9, O, Ci) from the wrapper) beside it. Each thread keeps 4 pixels
+// x OPT outputs of int32 sums in registers and reads 16 channels of a
+// pixel or a weight row per shared load.
+//
+// Output is written in the input dtype.
 
 #include "w8a8_common.cuh"
 
 namespace {
+
+using namespace w8a8;
+
+// -- tensor cores ------------------------------------------------------------
+
+namespace tc {
+
+constexpr int CK = 64;                       // input channels per chunk
+constexpr int TH = 8;                        // output rows per tile
+constexpr int TW = 32;                       // output columns per tile
+constexpr int HH = TH + 2;
+constexpr int HW = TW + 2;
+constexpr int NT = 256;                      // 8 warps, one output row each
+constexpr int ROW_CHUNKS = CK / 16;          // 16-byte chunks per 64-byte row
+constexpr int IN_CHUNKS = HH * HW * ROW_CHUNKS;     // 1360
+constexpr int PER_T = (IN_CHUNKS + NT - 1) / NT;    // 6
+constexpr int IN_BYTES = HH * HW * CK;              // 21,760
+
+template <int OT>
+__host__ __device__ constexpr int w_bytes() { return 9 * OT * CK; }
+
+template <typename T, int OT>
+__host__ __device__ constexpr int smem_bytes() {
+  // input + weights of a chunk; the epilogue's staging reuses them
+  return (IN_BYTES + w_bytes<OT>()) > (TH * TW * OT * (int)sizeof(T))
+             ? (IN_BYTES + w_bytes<OT>())
+             : (TH * TW * OT * (int)sizeof(T));
+}
+
+// byte offset of 16-byte chunk c of 64-byte row r, swizzled
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma(int* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// round(v / s) to an int8 code, v / s correctly rounded; r = 1 / s
+// correctly rounded. The first remainder step makes q faithful, the second
+// (Markstein) correctly rounded.
+__device__ __forceinline__ uint32_t quant(float v, float s, float r) {
+  float q = __fmul_rn(v, r);
+  q = __fmaf_rn(__fmaf_rn(-s, q, v), r, q);
+  q = __fmaf_rn(__fmaf_rn(-s, q, v), r, q);
+  return (uint32_t)__float2int_rn(q) & 0xffu;
+}
+
+__device__ __forceinline__ uint32_t pack4(float a, float b, float c, float d,
+                                          float s, float r) {
+  return quant(a, s, r) | (quant(b, s, r) << 8) | (quant(c, s, r) << 16) |
+         (quant(d, s, r) << 24);
+}
+
+// 16 input values as raw 16-byte words: bf16 two, f32 four
+template <typename T>
+struct Raw {
+  static constexpr int N = sizeof(T) == 2 ? 2 : 4;
+  uint4 u[N];
+};
+
+template <typename T>
+__device__ __forceinline__ void load16(Raw<T>& raw, const T* src, bool ok) {
+#pragma unroll
+  for (int k = 0; k < Raw<T>::N; ++k)
+    raw.u[k] = ok ? __ldg(reinterpret_cast<const uint4*>(src) + k)
+                  : make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ uint4 quant16(const Raw<float>& raw, float s,
+                                         float r) {
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 f = *reinterpret_cast<const float4*>(&raw.u[k]);
+    o[k] = pack4(f.x, f.y, f.z, f.w, s, r);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+__device__ __forceinline__ uint4 quant16(const Raw<__nv_bfloat16>& raw,
+                                         float s, float r) {
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw.u[k >> 1]) +
+                        2 * (k & 1);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + 1));
+    o[k] = pack4(lo.x, lo.y, hi.x, hi.y, s, r);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// The MMAs of one 64-channel chunk: warp w's output row (w) of the tile,
+// 32 pixels (two m16 tiles) x OT outputs (NT8 n8 tiles), K = 9 taps x 64
+// channels. a_in: the haloed int8 input chunk (10 x 34 rows of 64 bytes),
+// a_w: the chunk's weights (9 x OT rows of 64 bytes), both swizzled.
+// Per-lane ldmatrix rows, as csrc/conv3.cu: A pixel (lane & 15) of an m16
+// tile at chunk +(lane >> 4); B output channel (lane & 7) + 8 * (lane >> 4)
+// at chunk +((lane >> 3) & 1). An int8 k32 fragment is the bf16 k16
+// fragment's bytes.
+template <int OT>
+__device__ __forceinline__ void mma_chunk(int (&acc)[2][OT / 8][4],
+                                          uint32_t a_in, uint32_t a_w,
+                                          int warp, int lane) {
+  constexpr int NT8 = OT / 8;
+  const int a_row = lane & 15;
+  const int a_chk = lane >> 4;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_chk = (lane >> 3) & 1;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int ky = tap / 3, kx = tap % 3;
+#pragma unroll
+    for (int kc = 0; kc < CK / 32; ++kc) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        ldsm_x4(a_in + swz((warp + ky) * HW + m * 16 + a_row + kx,
+                           kc * 2 + a_chk),
+                a[m]);
+      if constexpr (NT8 == 1) {
+        uint32_t bf[2];
+        ldsm_x2(a_w + swz(tap * OT + (lane & 7), kc * 2 + b_chk), bf);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma(acc[m][0], a[m], bf[0], bf[1]);
+      } else {
+        // all four B fragments first: no spill at 128 registers
+        uint32_t bf[NT8 / 2][4];
+#pragma unroll
+        for (int np = 0; np < NT8 / 2; ++np)
+          ldsm_x4(a_w + swz(tap * OT + np * 16 + b_row, kc * 2 + b_chk),
+                  bf[np]);
+#pragma unroll
+        for (int np = 0; np < NT8 / 2; ++np)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mma(acc[m][2 * np], a[m], bf[np][0], bf[np][1]);
+            mma(acc[m][2 * np + 1], a[m], bf[np][2], bf[np][3]);
+          }
+      }
+    }
+  }
+}
+
+// The epilogue of warp w's output row gy = ty0 + w: act(acc * (s_x *
+// s_w[o]) + bias[o]) in x's dtype. C fragment element e: pixel
+// g + 8 * (e >> 1) of the m16 tile, channel 2 * q4 + (e & 1) of the n8.
+// OT = 8: scalar stores of the O <= 8 outputs. OT = 64: the warp's 32 x 64
+// outputs go through its own staging area `so` (rows of 64 * sizeof(T)
+// bytes, the 16-byte chunk index XORed with the row's low three bits) so
+// the NHWC stores are 16 bytes wide.
+template <typename T, int OT>
+__device__ __forceinline__ void epilogue(const int (&acc)[2][OT / 8][4],
+                                         T* __restrict__ y, int b, int gy,
+                                         int tx0, int H, int W, int O, int o0,
+                                         float s, const float* __restrict__ sw,
+                                         const float* __restrict__ bias,
+                                         int act, unsigned char* so, int lane) {
+  constexpr int NT8 = OT / 8;
+  const int g = lane >> 2;
+  const int q4 = lane & 3;
+  if constexpr (NT8 == 1) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gx = tx0 + m * 16 + g + 8 * (e >> 1);
+        const int o = 2 * q4 + (e & 1);
+        if (gy < H && gx < W && o < O)
+          y[(((size_t)b * H + gy) * W + gx) * O + o] =
+              from_f<T>(act_fn(dequant(acc[m][0][e], s, sw[o], bias, o), act));
+      }
+  } else {
+    constexpr int ROW_BYTES = OT * (int)sizeof(T);
+    constexpr int OUT_CHUNKS = ROW_BYTES / 16;
+    auto out_off = [&](int px, int byte) {
+      return px * ROW_BYTES + (((byte >> 4) ^ (px & 7)) << 4) + (byte & 15);
+    };
+#pragma unroll
+    for (int n = 0; n < NT8; ++n) {
+      const int o = o0 + n * 8 + 2 * q4;
+      const float sw0 = sw[o], sw1 = sw[o + 1];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = m * 16 + g + 8 * h;
+          T* dst = reinterpret_cast<T*>(
+              so + out_off(px, (n * 8 + 2 * q4) * (int)sizeof(T)));
+          dst[0] = from_f<T>(act_fn(dequant(acc[m][n][2 * h], s, sw0, bias, o), act));
+          dst[1] = from_f<T>(act_fn(dequant(acc[m][n][2 * h + 1], s, sw1, bias, o + 1), act));
+        }
+    }
+    __syncwarp();
+    if (gy < H) {
+      T* yr = y + (((size_t)b * H + gy) * W + tx0) * O + o0;
+#pragma unroll
+      for (int j = 0; j < TW * OUT_CHUNKS / 32; ++j) {
+        const int idx = j * 32 + lane;
+        const int px = idx / OUT_CHUNKS;
+        const int c = idx % OUT_CHUNKS;
+        if (tx0 + px < W)
+          reinterpret_cast<uint4*>(yr + (size_t)px * O)[c] =
+              *reinterpret_cast<const uint4*>(so + out_off(px, c * 16));
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// OT: output channels per block, 64 (O % 64 == 0) or 8 (O <= 8).
+template <typename T, int OT>
+__global__ void __launch_bounds__(NT, 2) conv3_w8a8_tc(
+    const T* __restrict__ x, const int8_t* __restrict__ wp,
+    const float* __restrict__ sx, const float* __restrict__ sw,
+    const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Ci,
+    int O, int act) {
+  constexpr int NT8 = OT / 8;
+  constexpr int G = sizeof(T) == 2 ? 3 : 2;    // chunks loaded together
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* s_in = smem;
+  unsigned char* s_w = smem + IN_BYTES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_ot = OT == 8 ? 1 : O / OT;
+  const int tiles_w = (W + TW - 1) / TW;
+  const int tiles_img = ((H + TH - 1) / TH) * tiles_w;
+  const int ot = blockIdx.x % n_ot;
+  const int tile = blockIdx.x / n_ot;
+  const int b = tile / tiles_img;
+  const int rem = tile - b * tiles_img;
+  const int ty0 = (rem / tiles_w) * TH;
+  const int tx0 = (rem % tiles_w) * TW;
+  const int nck = Ci / CK;
+  const float s = *sx;
+  const float r = __frcp_rn(s);
+  const T* xb = x + (size_t)b * H * W * Ci;
+
+  const uint32_t a_in = (uint32_t)__cvta_generic_to_shared(s_in);
+  const uint32_t a_w = (uint32_t)__cvta_generic_to_shared(s_w);
+  int acc[2][NT8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0;
+
+  for (int cc = 0; cc < nck; ++cc) {
+    if (cc > 0) __syncthreads();  // every warp is done with the last chunk
+    // the chunk's weights: one contiguous slab, by cp.async
+    const int8_t* wsrc = wp + ((size_t)ot * nck + cc) * w_bytes<OT>();
+    for (int i = tid; i < w_bytes<OT>() / 16; i += NT) {
+      const uint32_t dst = a_w + swz(i / ROW_CHUNKS, i % ROW_CHUNKS);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                   "l"(wsrc + i * 16)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    // the haloed input: 16 channels of one pixel per item, zero outside
+    // the image
+#pragma unroll
+    for (int j0 = 0; j0 < PER_T; j0 += G) {
+      Raw<T> raw[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int i = tid + (j0 + j) * NT;
+        const int p = i / ROW_CHUNKS;
+        const int gy = ty0 + p / HW - 1;
+        const int gx = tx0 + p % HW - 1;
+        const bool ok = i < IN_CHUNKS && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        load16(raw[j], ok ? xb + ((size_t)gy * W + gx) * Ci + cc * CK +
+                                (i % ROW_CHUNKS) * 16
+                          : xb, ok);
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int i = tid + (j0 + j) * NT;
+        if (i < IN_CHUNKS)
+          *reinterpret_cast<uint4*>(s_in + swz(i / ROW_CHUNKS, i % ROW_CHUNKS)) =
+              quant16(raw[j], s, r);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    mma_chunk<OT>(acc, a_in, a_w, warp, lane);
+  }
+
+  // the staging reuses the chunk buffers: every warp is done reading them
+  if (OT == 64) __syncthreads();
+  epilogue<T, OT>(acc, y, b, ty0 + warp, tx0, H, W, O, ot * OT, s, sw, bias,
+                  act, smem + warp * TW * OT * (int)sizeof(T), lane);
+}
+
+template <typename T, int OT>
+int launch(const void* x, const int8_t* wp, const float* sx, const float* sw,
+           const float* bias, void* y, int B, int H, int W, int Ci, int O,
+           int act, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<T, OT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3_w8a8_tc<T, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)B * ((H + TH - 1) / TH) *
+                           ((W + TW - 1) / TW) * (OT == 8 ? 1 : O / OT);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  conv3_w8a8_tc<T, OT><<<(unsigned)blocks, NT, smem, stream>>>(
+      (const T*)x, wp, sx, sw, bias, (T*)y, H, W, Ci, O, act);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int route(const void* x, const int8_t* wp, const float* sx, const float* sw,
+          const float* bias, void* y, int B, int H, int W, int Ci, int O,
+          int act, cudaStream_t stream) {
+  if (Ci % CK != 0 || !(O % 64 == 0 || O <= 8))
+    return (int)cudaErrorInvalidValue;
+  if (O <= 8)
+    return launch<T, 8>(x, wp, sx, sw, bias, y, B, H, W, Ci, O, act, stream);
+  return launch<T, 64>(x, wp, sx, sw, bias, y, B, H, W, Ci, O, act, stream);
+}
+
+}  // namespace tc
+
+// -- dp4a ----------------------------------------------------------------------
+
+namespace dp4a {
 
 constexpr int TH = 8;
 constexpr int TW = 32;
 constexpr int CK = 32;
 constexpr int NT = 256;
 
-using namespace w8a8;
-
 template <typename T, int OPT>
-__global__ void __launch_bounds__(NT) conv3_w8a8_kernel(
+__global__ void __launch_bounds__(NT) conv3_w8a8_dp4a(
     const T* __restrict__ x, const int8_t* __restrict__ wq,
     const float* __restrict__ sx, const float* __restrict__ sw,
     const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Ci,
@@ -140,34 +521,43 @@ int launch(const void* x, const int8_t* wq, const float* sx, const float* sw,
   const int tiles = ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
   if (O % 64 == 0) {
     dim3 grid(tiles, B, O / 64);
-    conv3_w8a8_kernel<T, 16><<<grid, NT, 0, stream>>>(
+    conv3_w8a8_dp4a<T, 16><<<grid, NT, 0, stream>>>(
         (const T*)x, wq, sx, sw, bias, (T*)y, H, W, Ci, O, act);
   } else {
     dim3 grid(tiles, B, (O + 3) / 4);
-    conv3_w8a8_kernel<T, 1><<<grid, NT, 0, stream>>>(
+    conv3_w8a8_dp4a<T, 1><<<grid, NT, 0, stream>>>(
         (const T*)x, wq, sx, sw, bias, (T*)y, H, W, Ci, O, act);
   }
   return (int)cudaGetLastError();
 }
 
+}  // namespace dp4a
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and y). x: (B, H, W, Ci); wq: (9, O,
-// Ci) int8; sx: one f32 on the device (the whole batch's scale); sw: (O,)
-// f32; bias: (O,) f32 or null; y: (B, H, W, O). act: 0 none, 1 gelu(tanh),
-// 2 silu, 3 lrelu.
+// dtype: 0 = float32, 1 = bfloat16 (x and y). x: (B, H, W, Ci); sx: one f32
+// on the device (the whole batch's scale); sw: (O,) f32; bias: (O,) f32 or
+// null; y: (B, H, W, O). act: 0 none, 1 gelu(tanh), 2 silu, 3 lrelu.
+// route 0 (dp4a): wq (9, O, Ci) int8, any Ci and O. route 1 (tensor
+// cores): Ci % 64 == 0 and O % 64 == 0 or O <= 8, wq packed (O tiles,
+// Ci / 64, 9, OT, 64) int8 with OT = 64, or 8 when O <= 8 (zero rows past
+// O); x 16-byte aligned.
 extern "C" int femasr_conv3_w8a8(const void* x, const void* wq, const void* sx,
                                  const void* sw, const void* bias, void* y, int B,
                                  int H, int W, int Ci, int O, int act, int dtype,
-                                 void* stream) {
+                                 int route, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int8_t* w8 = (const int8_t*)wq;
   const float* sxf = (const float*)sx;
   const float* swf = (const float*)sw;
   const float* bf = (const float*)bias;
-  if (dtype == 0)
-    return launch<float>(x, w8, sxf, swf, bf, y, B, H, W, Ci, O, act, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w8, sxf, swf, bf, y, B, H, W, Ci, O, act, s);
+  if (route == 1 && dtype == 0)
+    return tc::route<float>(x, w8, sxf, swf, bf, y, B, H, W, Ci, O, act, s);
+  if (route == 1 && dtype == 1)
+    return tc::route<__nv_bfloat16>(x, w8, sxf, swf, bf, y, B, H, W, Ci, O, act, s);
+  if (route == 0 && dtype == 0)
+    return dp4a::launch<float>(x, w8, sxf, swf, bf, y, B, H, W, Ci, O, act, s);
+  if (route == 0 && dtype == 1)
+    return dp4a::launch<__nv_bfloat16>(x, w8, sxf, swf, bf, y, B, H, W, Ci, O, act, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -87,16 +87,38 @@ def test_window_attention_kernel_matches_plain(gen, dtype, tol, b_, nh,
 
 
 def test_vq_argmin_kernel_matches_plain(gen):
-    for n, k, c in ((1000, 1024, 512), (77, 100, 36)):
+    # N and K not multiples of the 128-token and 128-code tiles; C not a
+    # multiple of the 16-channel chunk (the wrapper zero-pads)
+    for n, k, c in ((1000, 1024, 512), (77, 100, 36), (300, 1000, 64)):
         z = torch.randn(n, c, generator=gen).cuda()
         cb = torch.randn(k, c, generator=gen).cuda()
-        out = vq_argmin.vq_argmin(z, cb)
         ref = vq_argmin.vq_argmin_plain(z, cb)
-        assert (out == ref).float().mean().item() >= 0.999
+        for splits in (None, 1, 2, 3, 8):
+            out = vq_argmin.vq_argmin(z, cb, splits=splits)
+            assert out.dtype == torch.int32 and out.shape == (n,)
+            assert (out == ref).float().mean().item() >= 0.999
     # duplicated codes: the first index wins
     cb = torch.eye(4).repeat(2, 1).cuda()
     out = vq_argmin.vq_argmin(torch.eye(4).cuda(), cb)
     assert out.tolist() == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize('k', [1024, 1000])
+def test_vq_argmin_kernel_first_index_wins_exact_ties(gen, k):
+    # exact duplicates of a code placed in the same thread's column of a
+    # later tile (+128), in another thread's column (+1 of 16), in another
+    # range of codes (+512) and at the end; tokens near the first copy
+    cb = torch.randn(k, 64, generator=gen) * 4
+    firsts = torch.tensor([5, 17, 200, 300])
+    copies = torch.tensor([133, 22, 712, k - 1])
+    cb[copies] = cb[firsts]
+    z = cb[firsts].repeat_interleave(50, 0)
+    z = z + 0.01 * torch.randn(z.shape, generator=gen)
+    z, cb = z.cuda(), cb.cuda()
+    want = firsts.repeat_interleave(50).int().cuda()
+    assert torch.equal(vq_argmin.vq_argmin_plain(z, cb), want)
+    for splits in (None, 1, 2, 4, 8):
+        assert torch.equal(vq_argmin.vq_argmin(z, cb, splits=splits), want)
 
 
 def test_wrappers_count_launches(gen):
@@ -174,21 +196,43 @@ def test_matmul_w8a8_q_kernel_matches_plain(gen, m, k, n):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,ci,o,h,w', [(2, 64, 64, 37, 70),
+                                        (1, 64, 256, 9, 40),
+                                        (1, 64, 3, 11, 40),
                                         (1, 128, 64, 20, 33),
-                                        (1, 40, 3, 9, 13)])
+                                        (1, 128, 256, 10, 35),
+                                        (2, 128, 3, 9, 13),
+                                        (2, 256, 256, 19, 45),
+                                        (1, 256, 64, 17, 31),
+                                        (1, 256, 3, 13, 21),
+                                        (1, 40, 3, 9, 13),
+                                        (2, 64, 40, 9, 35)])
 def test_conv3_w8a8_kernel_matches_plain(gen, dtype, b, ci, o, h, w):
+    # ragged H, W (not multiples of the 8x32 tile); B = 2 shares one s_x
+    # (the second sample sets it); Ci % 64 == 0 with O % 64 == 0 or O <= 8
+    # runs on the tensor cores, the rest on __dp4a
     x = torch.randn(b, ci, h, w, generator=gen).cuda().to(dtype)
+    x[-1] *= 3.0
     x = x.contiguous(memory_format=torch.channels_last)
     wt = torch.randn(o, ci, 3, 3, generator=gen).cuda() * 0.05
     bias = torch.randn(o, generator=gen).cuda()
-    out = conv3_w8a8.conv3_w8a8(x, wt, bias)
-    ref = conv3_w8a8.conv3_w8a8_plain(x, wt, bias)
-    assert out.is_contiguous(memory_format=torch.channels_last)
-    _w8a8_close(out, ref, dtype)
-    out = conv3_w8a8.conv3_w8a8(x, wt, None, act='silu')
-    ref = conv3_w8a8.conv3_w8a8_plain(x, wt, None, act='silu')
-    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-6 if
-                               dtype == torch.float32 else 2 ** -7, atol=1e-5)
+    want = (conv3_w8a8.TC if ci % 64 == 0 and (o % 64 == 0 or o <= 8)
+            else conv3_w8a8.DP4A)
+    assert conv3_w8a8.route_of(ci, o, x.data_ptr()) == want
+    # the integer sums are exact, so with no act or lrelu the kernel runs
+    # the plain version's f32 operations: equal bit for bit
+    for bias_, act in ((bias, None), (None, None), (bias, 'lrelu')):
+        out = conv3_w8a8.conv3_w8a8(x, wt, bias_, act=act)
+        ref = conv3_w8a8.conv3_w8a8_plain(x, wt, bias_, act=act)
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        assert out.dtype == dtype and out.shape == (b, o, h, w)
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+    # expf / tanhf: the kernel's and PyTorch's may differ by an f32 ulp
+    for act in ('silu', 'gelu'):
+        out = conv3_w8a8.conv3_w8a8(x, wt, bias, act=act)
+        ref = conv3_w8a8.conv3_w8a8_plain(x, wt, bias, act=act)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-6 if
+                                   dtype == torch.float32 else 2 ** -7,
+                                   atol=1e-5)
 
 
 def test_int8_wrappers_count_launches(gen):
