@@ -11,7 +11,9 @@ Phases:
      and bf16 (B1, B2: within one bf16 ulp, see
      femasr_torch/kernels/tolerance.py; B6 bit for bit), and time kernel,
      plain version and one library call (convolutions: cuDNN's autotuned
-     algorithm; B3 must beat cdist().argmin);
+     algorithm; B3 must beat cdist().argmin; B5's fc1 must beat
+     torch._int_mm followed by the plain epilogue, and both its shapes
+     must take the tensor-core route);
   3. serve a 512x512 (whole-image) and a 720x720 (tiled) image through
      `python -m femasr_torch.inference_cli` in bf16 with a seeded
      random-init release-config x4 model, once in the float lane (B1-B3)
@@ -21,7 +23,8 @@ Phases:
      versions, per lane, and the float lane in bf16 (kernels and plain
      versions) against its f32 plain output;
   4. profile one warm 512px bf16 forward per lane (device time by kernel
-     group; in the int8 lane B6's launches and time per shape);
+     group; in the int8 lane B6's launches and time per shape and B5's per
+     instantiation: fc1 int8 out, fc2 bf16 out);
   5. print a JSON line of per-kernel numbers, the card's name and power
      limit, and last `{"ok": true, "device": {...}}`.
 
@@ -69,10 +72,13 @@ REDESIGNED = {
     'vq_argmin': 'as a register-tiled f32 FFMA GEMM with the argmin fused '
                  'in (no tensor cores by design: TF32 would flip near-tie '
                  'indices)',
+    'matmul_w8a8_q': 'for the int8 tensor cores (mma.sync s8 GEMM; the '
+                     'int8-out row max across a cluster of blocks)',
     'conv3_w8a8': 'for the int8 tensor cores (implicit GEMM, mma.sync s8)',
 }
 # kernels whose SASS must hold tensor-core instructions
-TENSOR_CORE_KERNELS = ('conv3', 'window_attention', 'conv3_w8a8')
+TENSOR_CORE_KERNELS = ('conv3', 'window_attention', 'matmul_w8a8_q',
+                       'conv3_w8a8')
 TC_OPS = ('HMMA', 'HGMMA', 'IMMA', 'IGMMA')
 BF16_PSNR_SLACK_DB = 0.5  # kernels vs plain versions, float lane in bf16
 TPU_FUNCTIONS = {
@@ -415,26 +421,51 @@ def check_matmul_w8a8(dev, results):
     results['matmul_w8a8'] = entry
 
 
+def mmq_composite(x_q, s_x, w_q, s_w, bias, act, out_int8, dtype):
+    """B5's function as torch._int_mm (the integer product) followed by the
+    plain version's epilogue: the nearest library composite, a yardstick
+    only."""
+    from femasr_torch.kernels._w8a8 import epilogue, quantize, scale_of
+    y = epilogue(torch._int_mm(x_q, w_q.t()), s_x.reshape(-1, 1) * s_w, bias,
+                 act)
+    if out_int8:
+        s_y = scale_of(y.abs().amax(dim=-1, keepdim=True))
+        return quantize(y, s_y), s_y
+    return y.to(dtype)
+
+
 def check_matmul_w8a8_q(dev, results):
     from femasr_torch.kernels import matmul_w8a8_q as mod
     from femasr_torch.kernels._w8a8 import quantize_weight
     from femasr_torch.ops.layers import quantize_rows
     g = torch.Generator(device=dev).manual_seed(5)
-    entry = None
+    entry, extra = None, {}
     for label, (k, n, act, out_int8) in MMQ_CASES.items():
         x_q, s_x = quantize_rows(torch.randn((TOKENS, k), generator=g,
                                              device=dev))
+        require(mod.route_of(k, n, x_q.data_ptr()) == mod.TC,
+                f'matmul_w8a8_q {label}: not on the tensor-core route')
         wt = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
         bias = torch.randn((n,), generator=g, device=dev) * 0.02
+        w_q, s_w = quantize_weight(wt, 1)
+        # the weight as a serving LinearInt8 holds it: quantized and packed
+        # once (weight_prep_ms), then passed to every call
+        packed = mod.weight_tc(wt)
         for dtype in ((torch.float32,) if out_int8
                       else (torch.float32, torch.bfloat16)):
-            def run(fn=mod.matmul_w8a8_q):
-                return fn(x_q, s_x, wt, bias, act=act, out_int8=out_int8,
-                          out_dtype=dtype)
+            def run(packed=packed):
+                return mod.matmul_w8a8_q(x_q, s_x, wt, bias, act=act,
+                                         out_int8=out_int8, out_dtype=dtype,
+                                         packed=packed)
+
+            def plain():
+                return mod.matmul_w8a8_q_plain(x_q, s_x, wt, bias, act=act,
+                                               out_int8=out_int8,
+                                               out_dtype=dtype)
             with counting_off(mod):
                 y = run()
                 torch.cuda.synchronize()
-                ref = run(mod.matmul_w8a8_q_plain)
+                ref = plain()
                 if out_int8:
                     d = (y[0].int() - ref[0].int()).abs()
                     scale_ok, _ = agree_w8a8(y[1], ref[1])
@@ -446,31 +477,68 @@ def check_matmul_w8a8_q(dev, results):
                     ok, err = agree_w8a8(y, ref)
                     note = ''
                 ms = time_ms(run)
-            plain_ms = time_ms(lambda: run(mod.matmul_w8a8_q_plain))
-            w_q, s_w = quantize_weight(wt, 1)
+                # like for like with PR 5's ms: the wrapper packs the
+                # weight on every call
+                ms_prep = time_ms(lambda: run(None))
+                if out_int8:
+                    # where fc1's time goes: the same product in bf16 out
+                    # (no row max, no quantize), with and without the GELU
+                    split = {f'{a or "no"}_act_bf16_out_ms': time_ms(
+                        lambda a=a: mod.matmul_w8a8_q(
+                            x_q, s_x, wt, bias, act=a,
+                            out_dtype=torch.bfloat16, packed=packed))
+                        for a in (act, None)}
+                    print(f'[matmul_w8a8_q] {label}, bf16 out instead: '
+                          + ', '.join(f'{k}={v:.4f}' for k, v in
+                                      split.items()), flush=True)
+            # the weight quantize and tensor-core packing, once per weight
+            # (weight_tc; not inside ms)
+            prep_ms = time_ms(lambda: mod.weight_tc(wt))
+            plain_ms = time_ms(plain)
             w_t = w_q.t()
             lib_ms = time_ms(lambda: torch._int_mm(x_q, w_t))
+            def comp():
+                return mmq_composite(x_q, s_x, w_q, s_w, bias, act, out_int8,
+                                     dtype)
+            # the yardstick computes the same function
+            cy = comp()
+            require(torch.equal(cy[0], ref[0]) if out_int8
+                    else torch.equal(cy, ref),
+                    f'matmul_w8a8_q {label}: composite differs from plain')
+            comp_ms = time_ms(comp)
             outs = y if out_int8 else (y,)
             bms, by = bound_ms(nbytes(x_q, s_x, w_q, s_w, bias, *outs),
                                2.0 * TOKENS * k * n, torch.int8)
             out_name = 'int8' if out_int8 else str(dtype)[6:]
-            print(f'[matmul_w8a8_q] {label} -> {out_name}: '
-                  f'max_abs_err={err:.3e} {note} ms={ms:.4f} '
+            print(f'[matmul_w8a8_q] {label} -> {out_name} (tensor cores): '
+                  f'max_abs_err={err:.3e} {note} ms={ms:.4f} (the weight '
+                  f'quantize and pack, once per weight: {prep_ms:.4f}; '
+                  f'packed in every call: {ms_prep:.4f}) '
                   f'plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} '
-                  f'(torch._int_mm, integer product only) '
+                  f'(torch._int_mm, integer product only) composite_ms='
+                  f'{comp_ms:.4f} (torch._int_mm + the plain epilogue) '
                   f'bound_ms={bms:.4f} ({by})', flush=True)
             require(ok, f'matmul_w8a8_q {label} {dtype}: kernel disagrees '
                         f'with plain (max err {err})')
+            nums = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        composite_ms=comp_ms, weight_prep_ms=prep_ms,
+                        ms_packing_each_call=ms_prep,
+                        bound_ms=bms, bound_by=by, max_abs_err=err)
             if out_int8:
-                entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                             library='torch._int_mm on the pre-quantized '
-                                     'operands (integer product only)',
+                require(ms < comp_ms, f'matmul_w8a8_q {label}: {ms} ms, not '
+                                      f'faster than torch._int_mm + the '
+                                      f'plain epilogue ({comp_ms} ms)')
+                entry = dict(nums, **split, library='torch._int_mm on the '
+                             'pre-quantized operands (integer product only)',
+                             composite='torch._int_mm + the plain epilogue',
                              dtype='int8 in, int8 + f32 row scales out',
                              shape='x_q (69696,256) -> 1024, gelu, int8 out '
                                    '(Swin MLP fc1)')
-            del y, ref
-    results['matmul_w8a8_q'] = entry
+            elif dtype == torch.bfloat16:
+                extra = {'fc2_' + key: v for key, v in nums.items()}
+                extra['fc2_shape'] = 'x_q (69696,1024) -> 256, bf16 out'
+            del y, ref, cy
+    results['matmul_w8a8_q'] = dict(entry, **extra)
 
 
 def check_conv3_w8a8(dev, results):
@@ -549,6 +617,9 @@ def plain_kernels():
                                       window_attention)
     from femasr_torch.models import femasr_arch
     from femasr_torch.ops import layers, quantize, swin
+
+    def mmq_plain(*args, packed=None, **kwargs):  # needs no packed weight
+        return matmul_w8a8_q.matmul_w8a8_q_plain(*args, **kwargs)
     saved = [(layers, 'conv3', conv3.conv3_plain),
              (femasr_arch, 'conv3', conv3.conv3_plain),
              (swin, 'window_attention',
@@ -556,7 +627,7 @@ def plain_kernels():
              (quantize, 'vq_argmin', vq_argmin.vq_argmin_plain),
              (layers, 'conv3_w8a8', conv3_w8a8.conv3_w8a8_plain),
              (layers, 'matmul_w8a8', matmul_w8a8.matmul_w8a8_plain),
-             (layers, 'matmul_w8a8_q', matmul_w8a8_q.matmul_w8a8_q_plain)]
+             (layers, 'matmul_w8a8_q', mmq_plain)]
     old = [(m, name, getattr(m, name)) for m, name, _ in saved]
     try:
         for m, name, fn in saved:
@@ -811,7 +882,7 @@ def main_path(dev, work, whole: int = 512, tiled: int = 720):
 # their __global__ names in femasr_torch/csrc
 KERNEL_GROUPS = (('conv3 kernel', ('conv3_tc', 'conv3_ffma')),
                  ('conv3_w8a8 kernel', ('conv3_w8a8_tc', 'conv3_w8a8_dp4a')),
-                 ('matmul_w8a8_q kernel', ('mm_w8a8_q_kernel',)),
+                 ('matmul_w8a8_q kernel', ('mm_w8a8_q_tc', 'mm_w8a8_q_dp4a')),
                  ('matmul_w8a8 kernel', ('mm_w8a8_kernel',)),
                  ('window_attention kernel', ('wattn_tc', 'wattn_f32')),
                  ('vq_argmin kernel', ('vq_tile_argmin', 'vq_merge',
@@ -894,10 +965,11 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
     kern.sort(key=lambda e: e.time_range.start)
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups['other'] = 0.0
-    by_name = {}
+    by_name, n_by_name = {}, {}
     for e in kern:
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
+        n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
         low = e.name.lower()
         for gname, keys in KERNEL_GROUPS:
             if any(k in low for k in keys):
@@ -922,6 +994,17 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
     if calls:
         out['conv3_w8a8_by_shape'] = conv3_w8a8_by_shape(
             calls, [e for e in kern if 'conv3_w8a8_' in e.name])
+    # B5 by instantiation: <signed char> is fc1 (int8 out), <__nv_bfloat16>
+    # fc2 (bf16 out)
+    mmq = {name: (n_by_name[name], us / 1e3) for name, us in by_name.items()
+           if 'mm_w8a8_q_' in name}
+    for name, (n, total) in mmq.items():
+        print(f'[profile]   matmul_w8a8_q {name[:70]}: {n} launches, '
+              f'{total / n:.4f} ms each, {total:.3f} ms in all', flush=True)
+    if mmq:
+        out['matmul_w8a8_q_by_kernel'] = {
+            name: dict(launches=n, ms=total / n, total_ms=total)
+            for name, (n, total) in mmq.items()}
     return out
 
 

@@ -65,6 +65,7 @@
 // Output is written in the input dtype.
 
 #include "w8a8_common.cuh"
+#include "w8a8_mma.cuh"
 
 namespace {
 
@@ -74,13 +75,11 @@ using namespace w8a8;
 
 namespace tc {
 
-constexpr int CK = 64;                       // input channels per chunk
 constexpr int TH = 8;                        // output rows per tile
 constexpr int TW = 32;                       // output columns per tile
 constexpr int HH = TH + 2;
 constexpr int HW = TW + 2;
 constexpr int NT = 256;                      // 8 warps, one output row each
-constexpr int ROW_CHUNKS = CK / 16;          // 16-byte chunks per 64-byte row
 constexpr int IN_CHUNKS = HH * HW * ROW_CHUNKS;     // 1360
 constexpr int PER_T = (IN_CHUNKS + NT - 1) / NT;    // 6
 constexpr int IN_BYTES = HH * HW * CK;              // 21,760
@@ -94,50 +93,6 @@ __host__ __device__ constexpr int smem_bytes() {
   return (IN_BYTES + w_bytes<OT>()) > (TH * TW * OT * (int)sizeof(T))
              ? (IN_BYTES + w_bytes<OT>())
              : (TH * TW * OT * (int)sizeof(T));
-}
-
-// byte offset of 16-byte chunk c of 64-byte row r, swizzled
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void mma(int* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// round(v / s) to an int8 code, v / s correctly rounded; r = 1 / s
-// correctly rounded. The first remainder step makes q faithful, the second
-// (Markstein) correctly rounded.
-__device__ __forceinline__ uint32_t quant(float v, float s, float r) {
-  float q = __fmul_rn(v, r);
-  q = __fmaf_rn(__fmaf_rn(-s, q, v), r, q);
-  q = __fmaf_rn(__fmaf_rn(-s, q, v), r, q);
-  return (uint32_t)__float2int_rn(q) & 0xffu;
-}
-
-__device__ __forceinline__ uint32_t pack4(float a, float b, float c, float d,
-                                          float s, float r) {
-  return quant(a, s, r) | (quant(b, s, r) << 8) | (quant(c, s, r) << 16) |
-         (quant(d, s, r) << 24);
 }
 
 // 16 input values as raw 16-byte words: bf16 two, f32 four
@@ -183,52 +138,16 @@ __device__ __forceinline__ uint4 quant16(const Raw<__nv_bfloat16>& raw,
 // The MMAs of one 64-channel chunk: warp w's output row (w) of the tile,
 // 32 pixels (two m16 tiles) x OT outputs (NT8 n8 tiles), K = 9 taps x 64
 // channels. a_in: the haloed int8 input chunk (10 x 34 rows of 64 bytes),
-// a_w: the chunk's weights (9 x OT rows of 64 bytes), both swizzled.
-// Per-lane ldmatrix rows, as csrc/conv3.cu: A pixel (lane & 15) of an m16
-// tile at chunk +(lane >> 4); B output channel (lane & 7) + 8 * (lane >> 4)
-// at chunk +((lane >> 3) & 1). An int8 k32 fragment is the bf16 k16
-// fragment's bytes.
+// a_w: the chunk's weights (9 x OT rows of 64 bytes), both swizzled. Each
+// tap is a shifted view of the one haloed tile (w8a8_mma.cuh mma_k64).
 template <int OT>
 __device__ __forceinline__ void mma_chunk(int (&acc)[2][OT / 8][4],
                                           uint32_t a_in, uint32_t a_w,
                                           int warp, int lane) {
-  constexpr int NT8 = OT / 8;
-  const int a_row = lane & 15;
-  const int a_chk = lane >> 4;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_chk = (lane >> 3) & 1;
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
     const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-    for (int kc = 0; kc < CK / 32; ++kc) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        ldsm_x4(a_in + swz((warp + ky) * HW + m * 16 + a_row + kx,
-                           kc * 2 + a_chk),
-                a[m]);
-      if constexpr (NT8 == 1) {
-        uint32_t bf[2];
-        ldsm_x2(a_w + swz(tap * OT + (lane & 7), kc * 2 + b_chk), bf);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) mma(acc[m][0], a[m], bf[0], bf[1]);
-      } else {
-        // all four B fragments first: no spill at 128 registers
-        uint32_t bf[NT8 / 2][4];
-#pragma unroll
-        for (int np = 0; np < NT8 / 2; ++np)
-          ldsm_x4(a_w + swz(tap * OT + np * 16 + b_row, kc * 2 + b_chk),
-                  bf[np]);
-#pragma unroll
-        for (int np = 0; np < NT8 / 2; ++np)
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            mma(acc[m][2 * np], a[m], bf[np][0], bf[np][1]);
-            mma(acc[m][2 * np + 1], a[m], bf[np][2], bf[np][3]);
-          }
-      }
-    }
+    mma_k64<2, OT / 8>(acc, a_in, (warp + ky) * HW + kx, a_w, tap * OT, lane);
   }
 }
 
@@ -342,13 +261,9 @@ __global__ void __launch_bounds__(NT, 2) conv3_w8a8_tc(
     if (cc > 0) __syncthreads();  // every warp is done with the last chunk
     // the chunk's weights: one contiguous slab, by cp.async
     const int8_t* wsrc = wp + ((size_t)ot * nck + cc) * w_bytes<OT>();
-    for (int i = tid; i < w_bytes<OT>() / 16; i += NT) {
-      const uint32_t dst = a_w + swz(i / ROW_CHUNKS, i % ROW_CHUNKS);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                   "l"(wsrc + i * 16)
-                   : "memory");
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int i = tid; i < w_bytes<OT>() / 16; i += NT)
+      cp_async16(a_w + swz(i / ROW_CHUNKS, i % ROW_CHUNKS), wsrc + i * 16);
+    cp_async_commit();
     // the haloed input: 16 channels of one pixel per item, zero outside
     // the image
 #pragma unroll
@@ -373,7 +288,7 @@ __global__ void __launch_bounds__(NT, 2) conv3_w8a8_tc(
               quant16(raw[j], s, r);
       }
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    cp_async_wait<0>();
     __syncthreads();
 
     mma_chunk<OT>(acc, a_in, a_w, warp, lane);

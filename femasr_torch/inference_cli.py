@@ -60,6 +60,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help='run the swin MLPs as the per-token int8 chain '
                              '(fc1 + GELU emits int8 for fc2; wins over '
                              '--int8_swin for the MLP; same index caveat)')
+    parser.add_argument('--strict_load', action='store_true',
+                        help='fail unless the checkpoint\'s keys and shapes '
+                             'match the model\'s exactly (default: overlay '
+                             'it onto the seed-0 init, counting unused, '
+                             'missing and skipped keys)')
     parser.add_argument('--device', type=str, default='cuda')
     return parser.parse_args(argv)
 
@@ -77,7 +82,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          int8_tail=args.int8_tail,
                          int8_levels=args.int8_levels,
                          int8_enc_up=args.int8_enc_up,
-                         int8_swin=args.int8_swin, int8_mlp=args.int8_mlp)
+                         int8_swin=args.int8_swin, int8_mlp=args.int8_mlp,
+                         strict=args.strict_load)
 
     os.makedirs(args.output, exist_ok=True)
     if os.path.isfile(args.input):

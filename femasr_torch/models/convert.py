@@ -1,5 +1,6 @@
 """Parameter conversion: JAX (flax) params -> torch state dict, and
-reference-format checkpoint loading.
+reference-format checkpoint loading (strict, or overlaid onto a seeded
+init as the JAX package's merge_params does).
 
 `femasr_param_mapping` is this package's copy of the flax-path -> torch-key
 table of femasr_tpu/models/convert.py; `from_flax` applies it backwards:
@@ -10,10 +11,11 @@ conv kernels (kh, kw, I, O) -> (O, I, kh, kw), dense kernels (I, O) ->
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 # derived buffers that reference checkpoints carry beside the parameters
 _BUFFER_SUFFIXES = ('relative_position_index', 'attn_mask')
@@ -155,3 +157,30 @@ def load_torch_checkpoint(path: str, param_key: Optional[str] = 'params'
         ckpt = ckpt['params_ema']
     return {k: v for k, v in ckpt.items()
             if not k.endswith(_BUFFER_SUFFIXES)}
+
+
+def merge_state_dict(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                     init: Callable[[nn.Module], Any]) -> Dict[str, int]:
+    """Overlay a state dict onto `model` as femasr_tpu's merge_params
+    overlays loaded params onto a fresh init (non-strict load parity with
+    the reference's base_model.py): a key the model lacks is ignored, a
+    tensor of another shape is skipped, and a parameter that is missing or
+    skipped keeps the value `init(model)` gives it. Returns the counts of
+    unused, missing and skipped keys, and prints them in one line when any
+    is nonzero."""
+    own = model.state_dict()
+    unused = [k for k in state_dict if k not in own]
+    skipped = [k for k in state_dict if k in own
+               and tuple(state_dict[k].shape) != tuple(own[k].shape)]
+    missing = [k for k in own if k not in state_dict]
+    if missing or skipped:
+        init(model)
+    model.load_state_dict({k: v for k, v in state_dict.items()
+                           if k in own and k not in skipped}, strict=False)
+    counts = dict(unused=len(unused), missing=len(missing),
+                  skipped=len(skipped))
+    if unused or missing or skipped:
+        print(f'[convert] non-strict load: {len(unused)} unused, '
+              f'{len(missing)} missing (init kept), {len(skipped)} skipped '
+              f'(shape mismatch); e.g. {(unused + missing + skipped)[:3]}')
+    return counts

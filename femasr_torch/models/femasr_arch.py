@@ -235,9 +235,12 @@ class FeMaSRNet(nn.Module):
         out_img = self._out_conv(out)
         return out_img, sum(codebook_losses), indices_list
 
-    def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
-        """Decode a code-index map (B, H, W) to an f32 image (B, 3, H', W')."""
-        x = self.quantize_group[0].get_codebook_entry(indices)
+    def decode_indices(self, indices: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Decode a code-index map (B, H, W) to an image (B, 3, H', W'),
+        computed in `dtype` (float32 or bfloat16) from the gathered codes
+        on."""
+        x = self.quantize_group[0].get_codebook_entry(indices, dtype)
         x = self.after_quant_group[0](x)
         for dec in self.decoder_group:
             x = dec(x)

@@ -15,7 +15,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from .convert import load_torch_checkpoint
+from .convert import load_torch_checkpoint, merge_state_dict
 from .femasr_arch import FeMaSRNet, init_weights
 
 
@@ -56,13 +56,22 @@ def reflect_pad(x: torch.Tensor, top: int, bottom: int, left: int,
     return x.index_select(3, _reflect_index(w, left, right, x.device))
 
 
+def seeded_init(model: torch.nn.Module) -> None:
+    """The serving default weights: init_weights from seed 0."""
+    init_weights(model, torch.Generator().manual_seed(0))
+
+
 class SRInferencer:
     """An LQ-stage FeMaSRNet (gn + silu) with frozen weights on one device,
     plus the serving paths.
 
     state_dict: reference-key state dict; None gives a seeded (seed 0)
-    random init. int8_tail, int8_levels, int8_enc_up, int8_swin, int8_mlp:
-    the int8 serving lane of FeMaSRNet (same state dict).
+    random init. It is overlaid onto that init as the JAX package's
+    SRInferencer(init_merge=True) does (`convert.merge_state_dict`: unknown
+    keys ignored, missing or mis-shaped parameters keep the init, the
+    counts printed); strict=True loads it with load_state_dict(strict=True)
+    instead. int8_tail, int8_levels, int8_enc_up, int8_swin, int8_mlp: the
+    int8 serving lane of FeMaSRNet (same state dict).
     """
 
     def __init__(self, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
@@ -71,7 +80,7 @@ class SRInferencer:
                  max_tile_batch: int = 1, device='cuda',
                  int8_tail: bool = False, int8_levels: int = 1,
                  int8_enc_up: bool = False, int8_swin: bool = False,
-                 int8_mlp: bool = False):
+                 int8_mlp: bool = False, strict: bool = False):
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
@@ -81,9 +90,11 @@ class SRInferencer:
                           int8_enc_up=int8_enc_up, int8_swin=int8_swin,
                           int8_mlp=int8_mlp)
         if state_dict is None:
-            init_weights(model, torch.Generator().manual_seed(0))
-        else:
+            seeded_init(model)
+        elif strict:
             model.load_state_dict(state_dict, strict=True)
+        else:
+            merge_state_dict(model, state_dict, seeded_init)
         self.model = model.to(self.device).eval()
         self.scale = self.model.scale_factor
         self.dtype = dtype
@@ -198,7 +209,8 @@ def load_inferencer(weight_path: str, scale_factor: int = 4,
                     dtype: torch.dtype = torch.float32, device='cuda',
                     **kwargs) -> SRInferencer:
     """SRInferencer from a reference-format torch .pth (kwargs go to
-    SRInferencer: codebook_params, max_tile_batch, the int8 flags)."""
+    SRInferencer: codebook_params, max_tile_batch, the int8 flags,
+    strict)."""
     resolve_device(device)
     sd = load_torch_checkpoint(weight_path)
     return SRInferencer(sd, scale_factor=scale_factor, dtype=dtype,

@@ -23,7 +23,7 @@ from ..kernels._w8a8 import quantize, scale_of
 from ..kernels.conv3 import conv3
 from ..kernels.conv3_w8a8 import conv3_w8a8
 from ..kernels.matmul_w8a8 import matmul_w8a8
-from ..kernels.matmul_w8a8_q import matmul_w8a8_q
+from ..kernels.matmul_w8a8_q import TC, matmul_w8a8_q, route_of, weight_tc
 
 
 class Conv2d(nn.Conv2d):
@@ -71,14 +71,34 @@ class LinearInt8(nn.Linear):
       - an (x_q int8, s_x f32 (..., 1)) pair: one link of the per-token
         chain (matmul_w8a8_q), with an optional fused `act` and, with
         out_int8, a re-quantized (y_q, s_y) output; otherwise out_dtype.
+
+    On the card the chain's tensor-core route takes the weight quantized
+    and packed (`weight_tc`) once per weight storage, device, dtype and
+    version: the weights are frozen, and a move, a cast, a load or an
+    in-place change of the parameter renews the copy. (An in-place edit
+    through `weight.data` bumps no version and is not seen.)
     """
+
+    _tc = None   # (key, packed codes, s_w) of the tensor-core route
+
+    def _tc_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        w = self.weight
+        if w.is_inference():     # no version counter: not kept
+            return weight_tc(w)
+        key = (w.device, w.dtype, w.data_ptr(), w._version)
+        if self._tc is None or self._tc[0] != key:
+            self._tc = (key, *weight_tc(w))
+        return self._tc[1:]
 
     def forward(self, x, act: Optional[str] = None, out_int8: bool = False,
                 out_dtype: torch.dtype = torch.float32):
         if isinstance(x, tuple):
             x_q, s_x = x
+            packed = (self._tc_weight() if x_q.is_cuda and route_of(
+                self.in_features, self.out_features, 0) == TC else None)
             return matmul_w8a8_q(x_q, s_x, self.weight, self.bias, act=act,
-                                 out_int8=out_int8, out_dtype=out_dtype)
+                                 out_int8=out_int8, out_dtype=out_dtype,
+                                 packed=packed)
         if act is not None or out_int8:
             raise ValueError('fused act / int8 output are chain-mode features')
         return matmul_w8a8(x, self.weight, self.bias)

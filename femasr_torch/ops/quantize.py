@@ -52,10 +52,13 @@ class VectorQuantizer(nn.Module):
     def forward(self, z: torch.Tensor):
         return vector_quantize(z, self.embedding.weight, self.beta)
 
-    def get_codebook_entry(self, indices: torch.Tensor) -> torch.Tensor:
-        """(B, H, W) or (B, 1, H, W) int indices -> (B, C, H, W) embeddings."""
+    def get_codebook_entry(self, indices: torch.Tensor,
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+        """(B, H, W) or (B, 1, H, W) int indices -> (B, C, H, W) embeddings
+        in `dtype` (the model's compute dtype, as JAX's `.astype(dtype)`)."""
         if indices.dim() == 4:
             indices = indices[:, 0]
         b, h, w = indices.shape
-        z_q = self.embedding.weight[indices.reshape(-1).long()]
+        z_q = self.embedding.weight[indices.reshape(-1).long()].to(dtype)
         return z_q.view(b, h, w, self.e_dim).permute(0, 3, 1, 2)

@@ -3,6 +3,7 @@ SRInferencer on the same weights and images (whole-image, tiled,
 bucketed), checkpoint loading and the CLI, on the CPU. Outputs agree to
 rel 2e-3 as for the slice."""
 
+import copy
 import os
 
 import cv2
@@ -13,8 +14,9 @@ import torch
 
 from femasr_torch import inference_cli
 from femasr_torch.models import FeMaSRNet, SRInferencer, init_weights
-from femasr_torch.models.convert import from_flax
-from femasr_torch.models.inference import flip_pad, load_inferencer
+from femasr_torch.models.convert import from_flax, merge_state_dict
+from femasr_torch.models.inference import (flip_pad, load_inferencer,
+                                           seeded_init)
 from femasr_tpu.models.convert import convert_femasr_checkpoint
 from femasr_tpu.models.inference import SRInferencer as JSRInferencer
 from femasr_tpu.models.inference import flip_pad as jflip_pad
@@ -101,6 +103,73 @@ def test_load_inferencer_reads_reference_pth(tmp_path, pair, key):
                                                dtype=np.float32))
     torch.testing.assert_close(loaded.run_padded(img), sr.run_padded(img),
                                rtol=0, atol=0)
+
+
+def test_non_strict_load_overlays_a_seeded_init(pair, capsys):
+    """A state dict with keys the model lacks (a use_semantic_loss
+    checkpoint's conv_semantic.0.*), a missing key and a mis-shaped tensor
+    loads as the JAX package's merge_params loads it: the extras are
+    ignored, the other two keep the seed-0 init, the counts are printed.
+    The weights are the seed-0 init plus seeded noise, so each check tells
+    a loaded tensor from an initial one."""
+    jsr, sr = pair
+    init = sr.model.state_dict()      # from_flax of the seed-0 init: itself
+    g = torch.Generator().manual_seed(7)
+    sd = {k: v + 0.01 * torch.randn(v.shape, generator=g)
+          for k, v in init.items()}
+    jsr1 = copy.copy(jsr)        # JAX's jitted forward, other params
+    jsr1.params = convert_femasr_checkpoint(
+        {k: v.numpy() for k, v in sd.items()}, codebook_params=SMALL,
+        LQ_stage=True, scale_factor=4)
+    extra = dict(sd, **{'conv_semantic.0.weight': torch.ones(8, 4, 1, 1),
+                        'conv_semantic.0.bias': torch.ones(8)})
+
+    # the same input shape as test_run_padded_matches_jax: no new compile
+    img = np.random.default_rng(0).random((1, 30, 31, 3), dtype=np.float32)
+    ref = np.asarray(jsr1.run_padded(jnp.asarray(img)))
+    sr1 = SRInferencer(extra, codebook_params=SMALL, device='cpu')
+    out = nhwc(sr1.run_padded(nchw(img)))
+    assert _rel(out, ref) < 2e-3
+    assert '2 unused, 0 missing (init kept), 0 skipped' in \
+        capsys.readouterr().out
+
+    # SRInferencer's overlay, on the model it built
+    gone, bent = 'out_conv.bias', 'decoder_group.0.block.1.weight'
+    bad = dict(extra)
+    del bad[gone]
+    bad[bent] = bad[bent][:, :-1]
+    assert merge_state_dict(sr1.model, bad, seeded_init) == dict(
+        unused=2, missing=1, skipped=1)
+    assert '2 unused, 1 missing (init kept), 1 skipped' in \
+        capsys.readouterr().out
+    got = sr1.model.state_dict()
+    assert set(got) == set(sd)
+    for k, v in got.items():
+        assert torch.equal(v, init[k] if k in (gone, bent) else sd[k]), k
+
+
+def test_strict_load_refuses_a_checkpoint_off_the_model(pair, tmp_path):
+    """strict=True (the CLI's --strict_load) loads a state dict that
+    matches the model key for key, and refuses one with keys the model
+    lacks before anything is served."""
+    _, sr = pair
+    sd = sr.model.state_dict()
+    got = SRInferencer(sd, codebook_params=SMALL, device='cpu',
+                       strict=True).model.state_dict()
+    assert set(got) == set(sd)
+    for k, v in got.items():
+        assert torch.equal(v, sd[k]), k
+    semantic = {'conv_semantic.0.weight': torch.ones(8, 4, 1, 1)}
+    with pytest.raises(RuntimeError, match='conv_semantic.0.weight'):
+        SRInferencer(dict(sd, **semantic), codebook_params=SMALL,
+                     device='cpu', strict=True)
+    pth = os.path.join(tmp_path, 'x4.pth')
+    torch.save({'params': semantic}, pth)
+    with pytest.raises(RuntimeError, match='conv_semantic.0.weight'):
+        inference_cli.main(['-i', str(tmp_path), '-w', pth, '-o',
+                            os.path.join(tmp_path, 'out'), '--device', 'cpu',
+                            '--strict_load'])
+    assert not os.path.exists(os.path.join(tmp_path, 'out'))
 
 
 def test_cli_serves_a_folder_on_cpu(tmp_path):

@@ -167,12 +167,20 @@ def test_matmul_w8a8_kernel_matches_plain(gen, dtype, m, k, n):
 
 
 @pytest.mark.parametrize('m,k,n', [(300, 256, 1024), (50, 1024, 256),
-                                   (9, 36, 5)])
+                                   (9, 36, 5), (50, 256, 1024),
+                                   (300, 1024, 256), (128, 64, 320),
+                                   (65, 128, 64), (70, 100, 64)])
 def test_matmul_w8a8_q_kernel_matches_plain(gen, m, k, n):
+    """Both routes (tensor cores: K and N multiples of 64; fc1 and fc2
+    with M off the 64-row tile; N = 320 leaves three of the second block's
+    four column warps past N, and its int8-out row max spans a cluster of
+    two blocks; N = 64 one block of one active warp column)."""
     from femasr_torch.ops.layers import quantize_rows
     x_q, s_x = quantize_rows(torch.randn(m, k, generator=gen).cuda())
     w = torch.randn(n, k, generator=gen).cuda()
     b = torch.randn(n, generator=gen).cuda()
+    assert matmul_w8a8_q.route_of(k, n, x_q.data_ptr()) == (
+        matmul_w8a8_q.TC if k % 64 == 0 else matmul_w8a8_q.DP4A)
     for dtype in (torch.float32, torch.bfloat16):
         out = matmul_w8a8_q.matmul_w8a8_q(x_q, s_x, w, b, out_dtype=dtype)
         ref = matmul_w8a8_q.matmul_w8a8_q_plain(x_q, s_x, w, b,
@@ -192,6 +200,76 @@ def test_matmul_w8a8_q_kernel_matches_plain(gen, m, k, n):
     d = (q.int() - q_r.int()).abs()
     assert d.max().item() <= 1 and d.float().mean().item() <= 1e-3
     torch.testing.assert_close(s, s_r, rtol=1e-6, atol=0)
+    # the other fused activations, model-dtype out (expf / tanhf may differ
+    # from PyTorch's by an ulp)
+    for act in ('gelu', 'silu', 'lrelu'):
+        out = matmul_w8a8_q.matmul_w8a8_q(x_q, s_x, w, b, act=act,
+                                          out_dtype=torch.float32)
+        ref = matmul_w8a8_q.matmul_w8a8_q_plain(x_q, s_x, w, b, act=act,
+                                                out_dtype=torch.float32)
+        torch.testing.assert_close(out, ref, rtol=2e-6, atol=1e-5)
+    # no bias; a zero row takes the 1e-12 scale floor
+    x_q[m // 2] = 0
+    q, s = matmul_w8a8_q.matmul_w8a8_q(x_q, s_x, w, None, out_int8=True)
+    q_r, s_r = matmul_w8a8_q.matmul_w8a8_q_plain(x_q, s_x, w, None,
+                                                 out_int8=True)
+    assert torch.equal(q, q_r) and torch.equal(s, s_r)
+
+
+def test_matmul_w8a8_q_tensor_cores_past_65535_row_tiles():
+    """Row tiles run on grid.x: M = 65,535 x 64 + 65 rows, N = 320 (a
+    cluster of two blocks along grid.y)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card (the kernels have no CPU mode)')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    m, k, n = 65535 * 64 + 65, 64, 320
+    x_q = torch.randint(-127, 128, (m, k), generator=g, device='cuda',
+                        dtype=torch.int8)
+    s_x = torch.rand((m, 1), generator=g, device='cuda') * 1e-2 + 1e-3
+    w = torch.randn((n, k), generator=g, device='cuda')
+    b = torch.randn((n,), generator=g, device='cuda')
+    assert matmul_w8a8_q.route_of(k, n, x_q.data_ptr()) == matmul_w8a8_q.TC
+    out = matmul_w8a8_q.matmul_w8a8_q(x_q, s_x, w, b,
+                                      out_dtype=torch.bfloat16)
+    _w8a8_close(out, matmul_w8a8_q.matmul_w8a8_q_plain(
+        x_q, s_x, w, b, out_dtype=torch.bfloat16), torch.bfloat16)
+    del out
+    q, s = matmul_w8a8_q.matmul_w8a8_q(x_q, s_x, w, b, out_int8=True)
+    q_r, s_r = matmul_w8a8_q.matmul_w8a8_q_plain(x_q, s_x, w, b,
+                                                 out_int8=True)
+    assert torch.equal(q, q_r)
+    torch.testing.assert_close(s, s_r, rtol=1e-6, atol=0)
+
+
+def test_linear_int8_chain_serves_weights_after_move_or_cast(gen):
+    """LinearInt8 keeps its weight packed for B5's tensor-core route; after
+    a forward, a move off the card and back, a cast, a reassigned .data
+    and a load, each next forward serves the current weights."""
+    from femasr_torch.ops.layers import LinearInt8, quantize_rows
+    lin = LinearInt8(256, 1024).cuda()
+    x = quantize_rows(torch.randn(100, 256, generator=gen).cuda())
+
+    def check():
+        for out_int8 in (False, True):
+            out = lin(x, out_int8=out_int8)
+            ref = matmul_w8a8_q.matmul_w8a8_q_plain(
+                *x, lin.weight, lin.bias, out_int8=out_int8,
+                out_dtype=torch.float32)
+            if out_int8:
+                assert torch.equal(out[0], ref[0])
+                torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0)
+            else:
+                _w8a8_close(out, ref, torch.float32)
+
+    check()
+    for change in (lambda: lin.cpu().cuda(),
+                   lambda: lin.to(torch.bfloat16),
+                   lambda: setattr(lin.weight, 'data',
+                                   torch.randn(1024, 256, device='cuda')),
+                   lambda: lin.load_state_dict(dict(
+                       weight=-lin.weight.detach(), bias=lin.bias.detach()))):
+        change()
+        check()
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
