@@ -4,27 +4,32 @@
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases:
-  1. build the six CUDA kernels from femasr_torch/csrc (nvcc, in parallel)
-     and count the tensor-core instructions in each library's SASS;
+  1. build the seven CUDA kernels from femasr_torch/csrc (nvcc, in
+     parallel: the six ports of the JAX package's Pallas kernels and the
+     port's own act_bf16) and count the tensor-core instructions in each
+     library's SASS;
   2. hold each kernel against its plain PyTorch version at the shapes the
      x4 release model gives it for a 512x512 LR image, in f32 (TF32 off)
      and bf16 (B1, B2: within one bf16 ulp, see
      femasr_torch/kernels/tolerance.py; B6 bit for bit), and time kernel,
      plain version and one library call (convolutions: cuDNN's autotuned
-     algorithm; B3 must beat cdist().argmin; B5's fc1 must beat
-     torch._int_mm followed by the plain epilogue, and both its shapes
-     must take the tensor-core route);
+     algorithm; B3 must beat cdist().argmin; B5's fc1 and B4's bf16 qkv
+     must beat torch._int_mm followed by the plain epilogue, B4's qkv
+     within 0.2 ms, and the Swin shapes of B4 and B5 must take the
+     tensor-core route; act_bf16's SiLU and GELU at the main path's sizes
+     within one bf16 ulp of their op-by-op twins);
   3. serve a 512x512 (whole-image) and a 720x720 (tiled) image through
      `python -m femasr_torch.inference_cli` in bf16 with a seeded
      random-init release-config x4 model, once in the float lane (B1-B3)
      and once in the int8 lane (--int8_tail --int8_levels 3 --int8_enc_up
-     --int8_swin --int8_mlp: B2-B6), counting kernel launches per lane,
+     --int8_swin --int8_mlp: B2-B6), both through act_bf16, counting
+     kernel launches per lane,
      then compare one image in f32 with the kernels against the plain
      versions, per lane, and the float lane in bf16 (kernels and plain
      versions) against its f32 plain output;
   4. profile one warm 512px bf16 forward per lane (device time by kernel
-     group; in the int8 lane B6's launches and time per shape and B5's per
-     instantiation: fc1 int8 out, fc2 bf16 out);
+     group; in the int8 lane B6's launches and time per shape, B5's per
+     instantiation: fc1 int8 out, fc2 bf16 out, and B4's per route);
   5. print a JSON line of per-kernel numbers, the card's name and power
      limit, and last `{"ok": true, "device": {...}}`.
 
@@ -63,6 +68,10 @@ TPU_SOURCES = {
     'matmul_w8a8': 'femasr_tpu/ops/pallas/int8_dense.py:164',
     'matmul_w8a8_q': 'femasr_tpu/ops/pallas/int8_dense.py:292',
     'conv3_w8a8': 'femasr_tpu/ops/pallas/int8_dense.py:437',
+    # not a TPU kernel: the activations that the JAX package leaves to XLA
+    'act_bf16': 'femasr_tpu/ops/layers.py:167,173 and femasr_tpu/ops/'
+                'swin.py:256 (nn.silu, nn.gelu in bf16; XLA, no Pallas '
+                'kernel)',
 }
 # kernels redesigned since their port, and how (their earlier times stand
 # in PERF.md)
@@ -72,13 +81,15 @@ REDESIGNED = {
     'vq_argmin': 'as a register-tiled f32 FFMA GEMM with the argmin fused '
                  'in (no tensor cores by design: TF32 would flip near-tie '
                  'indices)',
+    'matmul_w8a8': 'for the int8 tensor cores (mma.sync s8 GEMM over rows '
+                   'quantized once into shared memory)',
     'matmul_w8a8_q': 'for the int8 tensor cores (mma.sync s8 GEMM; the '
                      'int8-out row max across a cluster of blocks)',
     'conv3_w8a8': 'for the int8 tensor cores (implicit GEMM, mma.sync s8)',
 }
 # kernels whose SASS must hold tensor-core instructions
-TENSOR_CORE_KERNELS = ('conv3', 'window_attention', 'matmul_w8a8_q',
-                       'conv3_w8a8')
+TENSOR_CORE_KERNELS = ('conv3', 'window_attention', 'matmul_w8a8',
+                       'matmul_w8a8_q', 'conv3_w8a8')
 TC_OPS = ('HMMA', 'HGMMA', 'IMMA', 'IGMMA')
 BF16_PSNR_SLACK_DB = 0.5  # kernels vs plain versions, float lane in bf16
 TPU_FUNCTIONS = {
@@ -89,7 +100,10 @@ TPU_FUNCTIONS = {
     'matmul_w8a8': 'femasr_tpu/ops/pallas/int8_dense.py:matmul_w8a8',
     'matmul_w8a8_q': 'femasr_tpu/ops/pallas/int8_dense.py:matmul_w8a8_q',
     'conv3_w8a8': 'femasr_tpu/ops/pallas/int8_dense.py:conv3_w8a8',
+    'act_bf16': None,
 }
+# B4's bf16 Swin qkv (packed weight) must take at most this long
+MM_QKV_MAX_MS = 0.2
 
 
 class PhaseError(RuntimeError):
@@ -379,46 +393,137 @@ CONV_CASES = {'2112^2 64->64': (2112, 64, 64),
               'out_conv 2112^2 64->3': (2112, 64, 3)}
 
 
+def mm_composite(x, w_q, s_w, bias):
+    """B4's function as the per-tensor scale, the quantize, torch._int_mm
+    (the integer product) and the plain version's epilogue: the nearest
+    library composite, a yardstick only."""
+    from femasr_torch.kernels._w8a8 import epilogue, quantize, tensor_scale
+    s_x = tensor_scale(x)
+    y = epilogue(torch._int_mm(quantize(x, s_x), w_q.t()), s_x * s_w, bias,
+                 None)
+    return y.to(x.dtype)
+
+
 def check_matmul_w8a8(dev, results):
     from femasr_torch.kernels import matmul_w8a8 as mod
     from femasr_torch.kernels._w8a8 import (quantize, quantize_weight,
                                             tensor_scale)
+    from femasr_torch.kernels.matmul_w8a8_q import weight_tc
     g = torch.Generator(device=dev).manual_seed(4)
     x32 = torch.randn((TOKENS, 1024), generator=g, device=dev)
-    entry = None
+    entry, extra = None, {}
     for label, (k, n) in MM_CASES.items():
         wt = torch.randn((n, k), generator=g, device=dev) * k ** -0.5
         bias = torch.randn((n,), generator=g, device=dev) * 0.02
+        # the weight as a serving LinearInt8 holds it: quantized and packed
+        # once, then passed to every call
+        packed = weight_tc(wt)
+        w_q, s_w = quantize_weight(wt, 1)
         for dtype in (torch.float32, torch.bfloat16):
             x = x32[:, :k].contiguous().to(dtype)
+            require(mod.route_of(k, n, x.data_ptr()) == mod.TC,
+                    f'matmul_w8a8 {label}: not on the tensor-core route')
+
+            def run(packed=packed):
+                return mod.matmul_w8a8(x, wt, bias, packed=packed)
             with counting_off(mod):
-                y = mod.matmul_w8a8(x, wt, bias)
+                y = run()
                 torch.cuda.synchronize()
                 ref = mod.matmul_w8a8_plain(x, wt, bias)
                 ok, err = agree_w8a8(y, ref)
-                ms = time_ms(lambda: mod.matmul_w8a8(x, wt, bias))
+                ms = time_ms(run)
+                # like for like with the earlier kernel's times: the
+                # wrapper quantizes and packs the weight in every call
+                ms_prep = time_ms(lambda: run(None))
             plain_ms = time_ms(lambda: mod.matmul_w8a8_plain(x, wt, bias))
-            w_q, s_w = quantize_weight(wt, 1)
             x_q = quantize(x, tensor_scale(x))
             w_t = w_q.t()
             lib_ms = time_ms(lambda: torch._int_mm(x_q, w_t))
+            # the yardstick computes the same function
+            require(torch.equal(mm_composite(x, w_q, s_w, bias), ref),
+                    f'matmul_w8a8 {label} {dtype}: composite differs from '
+                    f'plain')
+            comp_ms = time_ms(lambda: mm_composite(x, w_q, s_w, bias))
             bms, by = bound_ms(nbytes(x, y, w_q, s_w, bias) + 4,
                                2.0 * TOKENS * k * n, torch.int8)
-            print(f'[matmul_w8a8] {label} {str(dtype)[6:]}: max_abs_err='
-                  f'{err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} '
-                  f'library_ms={lib_ms:.4f} (torch._int_mm, integer product '
-                  f'only) bound_ms={bms:.4f} ({by})', flush=True)
+            print(f'[matmul_w8a8] {label} {str(dtype)[6:]} (tensor cores): '
+                  f'max_abs_err={err:.3e} ms={ms:.4f} (weight packed once; '
+                  f'packed in every call: {ms_prep:.4f}) '
+                  f'plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} '
+                  f'(torch._int_mm, integer product only) composite_ms='
+                  f'{comp_ms:.4f} (tensor_scale + quantize + torch._int_mm '
+                  f'+ the plain epilogue) bound_ms={bms:.4f} ({by})',
+                  flush=True)
             require(ok, f'matmul_w8a8 {label} {dtype}: kernel disagrees '
                         f'with plain (max abs err {err})')
+            nums = dict(ms=ms, ms_packing_each_call=ms_prep,
+                        plain_ms=plain_ms, library_ms=lib_ms,
+                        composite_ms=comp_ms, bound_ms=bms, bound_by=by,
+                        max_abs_err=err)
             if label.startswith('qkv') and dtype == torch.bfloat16:
-                entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                             library='torch._int_mm on the pre-quantized '
-                                     'operands (integer product only)',
+                require(ms < comp_ms, f'matmul_w8a8 {label}: {ms} ms, not '
+                                      f'faster than the composite '
+                                      f'({comp_ms} ms)')
+                require(ms <= MM_QKV_MAX_MS, f'matmul_w8a8 {label}: {ms} '
+                                             f'ms, over {MM_QKV_MAX_MS} ms')
+                entry = dict(nums, library='torch._int_mm on the '
+                             'pre-quantized operands (integer product only)',
+                             composite='tensor_scale + quantize + '
+                                       'torch._int_mm + the plain epilogue',
                              dtype='bfloat16',
                              shape='x (69696,256) -> 768 (Swin qkv)')
+            elif label.startswith('proj') and dtype == torch.bfloat16:
+                extra = {'proj_' + key: v for key, v in nums.items()}
             del y, ref
-    results['matmul_w8a8'] = entry
+    results['matmul_w8a8'] = dict(entry, **extra)
+
+
+def check_act_bf16(dev, results):
+    """act_bf16 against its op-by-op twin at the main path's sizes: SiLU on
+    the int8 lane's last decoder level, GELU on the Swin MLP's hidden
+    activations; F.silu / F.gelu (one rounding, not the same function in
+    bf16) are timed for context."""
+    from femasr_torch.kernels import act_bf16 as mod
+    from femasr_torch.kernels.tolerance import bf16_agreement
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = {'silu': ((1, 64, 2112, 2112), F.silu),
+             'gelu': ((TOKENS, 1024),
+                      lambda t: F.gelu(t, approximate='tanh'))}
+    entry, extra = None, {}
+    for act, (shape, lib) in cases.items():
+        x = (torch.randn(shape, generator=g, device=dev) * 3).to(
+            torch.bfloat16)
+        if x.dim() == 4:
+            x = x.contiguous(memory_format=torch.channels_last)
+        with counting_off(mod):
+            y = mod.act_bf16(x, act)
+            torch.cuda.synchronize()
+            ref = mod.act_bf16_plain(x, act)
+            ok, err, beyond = bf16_agreement(y, ref, 0.0)
+            equal = torch.equal(y, ref)
+            ms = time_ms(lambda: mod.act_bf16(x, act))
+        plain_ms = time_ms(lambda: mod.act_bf16_plain(x, act))
+        ctx_ms = time_ms(lambda: lib(x))
+        bms, by = bound_ms(nbytes(x, y), 0.0, torch.bfloat16)
+        print(f'[act_bf16] {act} {tuple(shape)} bf16: max_abs_err={err:.3e} '
+              f'(bit for bit: {equal}; {beyond:.2e} of outputs beyond one '
+              f'bf16 ulp) ms={ms:.4f} plain_ms={plain_ms:.4f} (the op-by-op '
+              f'twin) library_ms=null (F.{act} for context, one rounding: '
+              f'{ctx_ms:.4f}) bound_ms={bms:.4f} ({by})', flush=True)
+        require(ok, f'act_bf16 {act}: kernel disagrees with its twin '
+                    f'({beyond} beyond one ulp, max abs err {err})')
+        nums = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                    context_one_rounding_ms=ctx_ms, bound_ms=bms,
+                    bound_by=by, max_abs_err=err, bit_for_bit=equal)
+        if act == 'silu':
+            entry = dict(nums, dtype='bfloat16', tpu_kernel=False,
+                         shape='x (1,64,2112,2112), silu (int8 lane '
+                               'decoder level)')
+        else:
+            extra = {'gelu_' + key: v for key, v in nums.items()}
+            extra['gelu_shape'] = 'x (69696,1024), tanh gelu (Swin MLP)'
+        del x, y, ref
+    results['act_bf16'] = dict(entry, **extra)
 
 
 def mmq_composite(x_q, s_x, w_q, s_w, bias, act, out_int8, dtype):
@@ -612,13 +717,16 @@ def smooth_image(rng, h, w):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model's kernel calls to the plain versions (f32 reference)."""
-    from femasr_torch.kernels import (conv3, conv3_w8a8, matmul_w8a8,
-                                      matmul_w8a8_q, vq_argmin,
+    from femasr_torch.kernels import (act_bf16, conv3, conv3_w8a8,
+                                      matmul_w8a8, matmul_w8a8_q, vq_argmin,
                                       window_attention)
     from femasr_torch.models import femasr_arch
     from femasr_torch.ops import layers, quantize, swin
 
-    def mmq_plain(*args, packed=None, **kwargs):  # needs no packed weight
+    def mm_plain(*args, packed=None, **kwargs):  # needs no packed weight
+        return matmul_w8a8.matmul_w8a8_plain(*args, **kwargs)
+
+    def mmq_plain(*args, packed=None, **kwargs):
         return matmul_w8a8_q.matmul_w8a8_q_plain(*args, **kwargs)
     saved = [(layers, 'conv3', conv3.conv3_plain),
              (femasr_arch, 'conv3', conv3.conv3_plain),
@@ -626,8 +734,9 @@ def plain_kernels():
               window_attention.window_attention_plain),
              (quantize, 'vq_argmin', vq_argmin.vq_argmin_plain),
              (layers, 'conv3_w8a8', conv3_w8a8.conv3_w8a8_plain),
-             (layers, 'matmul_w8a8', matmul_w8a8.matmul_w8a8_plain),
-             (layers, 'matmul_w8a8_q', mmq_plain)]
+             (layers, 'matmul_w8a8', mm_plain),
+             (layers, 'matmul_w8a8_q', mmq_plain),
+             (layers, 'act_bf16', act_bf16.act_bf16_plain)]
     old = [(m, name, getattr(m, name)) for m, name, _ in saved]
     try:
         for m, name, fn in saved:
@@ -640,10 +749,11 @@ def plain_kernels():
 
 # lane -> (CLI flags, SRInferencer/FeMaSRNet kwargs, kernels it must run)
 LANES = {
-    'float': ([], {}, ('conv3', 'window_attention', 'vq_argmin')),
+    'float': ([], {}, ('conv3', 'window_attention', 'vq_argmin',
+                       'act_bf16')),
     'int8': (INT8_FLAGS, INT8_LANE, ('window_attention', 'vq_argmin',
                                      'matmul_w8a8', 'matmul_w8a8_q',
-                                     'conv3_w8a8')),
+                                     'conv3_w8a8', 'act_bf16')),
 }
 MAX_STEPS = 1e-2  # own vs forced int8-layer input, in quantization steps
 
@@ -878,12 +988,13 @@ def main_path(dev, work, whole: int = 512, tiled: int = 720):
     return counts, extra
 
 
-# (group, substrings of the kernel's name): the port's six kernels first, by
-# their __global__ names in femasr_torch/csrc
+# (group, substrings of the kernel's name): the port's seven kernels first,
+# by their __global__ names in femasr_torch/csrc
 KERNEL_GROUPS = (('conv3 kernel', ('conv3_tc', 'conv3_ffma')),
                  ('conv3_w8a8 kernel', ('conv3_w8a8_tc', 'conv3_w8a8_dp4a')),
                  ('matmul_w8a8_q kernel', ('mm_w8a8_q_tc', 'mm_w8a8_q_dp4a')),
-                 ('matmul_w8a8 kernel', ('mm_w8a8_kernel',)),
+                 ('matmul_w8a8 kernel', ('mm_w8a8_tc', 'mm_w8a8_dp4a')),
+                 ('act_bf16 kernel', ('act_bf16_kernel',)),
                  ('window_attention kernel', ('wattn_tc', 'wattn_f32')),
                  ('vq_argmin kernel', ('vq_tile_argmin', 'vq_merge',
                                        'code_norms')),
@@ -995,16 +1106,21 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
         out['conv3_w8a8_by_shape'] = conv3_w8a8_by_shape(
             calls, [e for e in kern if 'conv3_w8a8_' in e.name])
     # B5 by instantiation: <signed char> is fc1 (int8 out), <__nv_bfloat16>
-    # fc2 (bf16 out)
-    mmq = {name: (n_by_name[name], us / 1e3) for name, us in by_name.items()
-           if 'mm_w8a8_q_' in name}
-    for name, (n, total) in mmq.items():
-        print(f'[profile]   matmul_w8a8_q {name[:70]}: {n} launches, '
-              f'{total / n:.4f} ms each, {total:.3f} ms in all', flush=True)
-    if mmq:
-        out['matmul_w8a8_q_by_kernel'] = {
-            name: dict(launches=n, ms=total / n, total_ms=total)
-            for name, (n, total) in mmq.items()}
+    # fc2 (bf16 out); B4 and act_bf16 by route and instantiation
+    for label, keys in (('matmul_w8a8_q', ('mm_w8a8_q_',)),
+                        ('matmul_w8a8', ('mm_w8a8_tc', 'mm_w8a8_dp4a')),
+                        ('act_bf16', ('act_bf16_kernel',))):
+        rows = {name: (n_by_name[name], us / 1e3)
+                for name, us in by_name.items()
+                if any(k in name for k in keys)}
+        for name, (n, total) in rows.items():
+            print(f'[profile]   {label} {name[:70]}: {n} launches, '
+                  f'{total / n:.4f} ms each, {total:.3f} ms in all',
+                  flush=True)
+        if rows:
+            out[f'{label}_by_kernel'] = {
+                name: dict(launches=n, ms=total / n, total_ms=total)
+                for name, (n, total) in rows.items()}
     return out
 
 
@@ -1077,6 +1193,7 @@ def main() -> int:
     check_matmul_w8a8(dev, results)
     check_matmul_w8a8_q(dev, results)
     check_conv3_w8a8(dev, results)
+    check_act_bf16(dev, results)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         counts, extra = main_path(dev, work)
@@ -1090,7 +1207,8 @@ def main() -> int:
     for name in kernels.MODULES:
         r = results[name]
         # launches: the main-path run of the lane that ported the kernel
-        # (float lane for B1-B3, int8 lane for B4-B6); both lanes beside it
+        # (float lane for B1-B3 and act_bf16, int8 lane for B4-B6); both
+        # lanes beside it
         lane = 'float' if name in LANES['float'][2] else 'int8'
         line['kernels'].append(dict(
             name=name, route='cuda', source=f'femasr_torch/csrc/{name}.cu',

@@ -95,46 +95,6 @@ __host__ __device__ constexpr int smem_bytes() {
              : (TH * TW * OT * (int)sizeof(T));
 }
 
-// 16 input values as raw 16-byte words: bf16 two, f32 four
-template <typename T>
-struct Raw {
-  static constexpr int N = sizeof(T) == 2 ? 2 : 4;
-  uint4 u[N];
-};
-
-template <typename T>
-__device__ __forceinline__ void load16(Raw<T>& raw, const T* src, bool ok) {
-#pragma unroll
-  for (int k = 0; k < Raw<T>::N; ++k)
-    raw.u[k] = ok ? __ldg(reinterpret_cast<const uint4*>(src) + k)
-                  : make_uint4(0u, 0u, 0u, 0u);
-}
-
-__device__ __forceinline__ uint4 quant16(const Raw<float>& raw, float s,
-                                         float r) {
-  uint32_t o[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float4 f = *reinterpret_cast<const float4*>(&raw.u[k]);
-    o[k] = pack4(f.x, f.y, f.z, f.w, s, r);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-__device__ __forceinline__ uint4 quant16(const Raw<__nv_bfloat16>& raw,
-                                         float s, float r) {
-  uint32_t o[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw.u[k >> 1]) +
-                        2 * (k & 1);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + 1));
-    o[k] = pack4(lo.x, lo.y, hi.x, hi.y, s, r);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
 // The MMAs of one 64-channel chunk: warp w's output row (w) of the tile,
 // 32 pixels (two m16 tiles) x OT outputs (NT8 n8 tiles), K = 9 taps x 64
 // channels. a_in: the haloed int8 input chunk (10 x 34 rows of 64 bytes),

@@ -112,23 +112,6 @@ __device__ __forceinline__ void act_all(float (&v)[NV]) {
   for (int i = 0; i < NV; ++i) v[i] = act_fn(v[i], ACT);
 }
 
-// byte offset of byte `byte` of staged row px (RB bytes a row): the 16-byte
-// chunk index XORed with the row's low bits, so the fragment writes of a
-// warp spread over the banks
-template <int RB, int SPAN>
-__device__ __forceinline__ int stage_off(int px, int byte) {
-  return px * RB + (((byte >> 4) ^ (px & (SPAN - 1))) << 4) + (byte & 15);
-}
-
-// a pair of outputs of one C fragment row, into the staging area
-__device__ __forceinline__ void put2(unsigned char* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void put2(unsigned char* p, __nv_bfloat16 a,
-                                     __nv_bfloat16 b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(a, b);
-}
-
 // T: float or __nv_bfloat16 (out = y), or int8_t (out = y_q, with the row
 // scales s_y; launched as a cluster of the N / BN blocks of a row tile).
 template <typename T>

@@ -1,10 +1,13 @@
 // The int8 tensor-core pieces of the w8a8 kernels (conv3_w8a8.cu,
-// matmul_w8a8_q.cu): shared rows of one 64-byte K chunk with a
-// bank-conflict-free swizzle, 16-byte cp.async copies, ldmatrix fragment
-// loads, mma.sync m16n8k32 s8 x s8 -> s32 and a warp's MMA sweep over one
-// chunk, and the exact int8 quantize without IEEE division.
+// matmul_w8a8.cu, matmul_w8a8_q.cu): shared rows of one 64-byte K chunk
+// with a bank-conflict-free swizzle, 16-byte cp.async copies, ldmatrix
+// fragment loads, mma.sync m16n8k32 s8 x s8 -> s32 and a warp's MMA sweep
+// over one chunk, the exact int8 quantize without IEEE division (also of
+// 16 float or bf16 values loaded as raw 16-byte words), and the swizzled
+// staging of a warp's outputs for 16-byte stores.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -126,6 +129,63 @@ __device__ __forceinline__ uint32_t pack4(float a, float b, float c, float d,
                                           float s, float r) {
   return quant(a, s, r) | (quant(b, s, r) << 8) | (quant(c, s, r) << 16) |
          (quant(d, s, r) << 24);
+}
+
+// 16 input values as raw 16-byte words: bf16 two, f32 four
+template <typename T>
+struct Raw {
+  static constexpr int N = sizeof(T) == 2 ? 2 : 4;
+  uint4 u[N];
+};
+
+template <typename T>
+__device__ __forceinline__ void load16(Raw<T>& raw, const T* src, bool ok) {
+#pragma unroll
+  for (int k = 0; k < Raw<T>::N; ++k)
+    raw.u[k] = ok ? __ldg(reinterpret_cast<const uint4*>(src) + k)
+                  : make_uint4(0u, 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ uint4 quant16(const Raw<float>& raw, float s,
+                                         float r) {
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 f = *reinterpret_cast<const float4*>(&raw.u[k]);
+    o[k] = pack4(f.x, f.y, f.z, f.w, s, r);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+__device__ __forceinline__ uint4 quant16(const Raw<__nv_bfloat16>& raw,
+                                         float s, float r) {
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw.u[k >> 1]) +
+                        2 * (k & 1);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + 1));
+    o[k] = pack4(lo.x, lo.y, hi.x, hi.y, s, r);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// byte offset of byte `byte` of staged row px (RB bytes a row): the 16-byte
+// chunk index XORed with the row's low bits, so the fragment writes of a
+// warp spread over the banks
+template <int RB, int SPAN>
+__device__ __forceinline__ int stage_off(int px, int byte) {
+  return px * RB + (((byte >> 4) ^ (px & (SPAN - 1))) << 4) + (byte & 15);
+}
+
+// a pair of outputs of one C fragment row, into the staging area
+__device__ __forceinline__ void put2(unsigned char* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void put2(unsigned char* p, __nv_bfloat16 a,
+                                     __nv_bfloat16 b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(a, b);
 }
 
 }  // namespace w8a8

@@ -5,12 +5,13 @@ plain PyTorch version of the same function (used for CPU tensors and as
 the reference on the card) and an integer `launches` count.
 """
 
-from . import (conv3, conv3_w8a8, matmul_w8a8, matmul_w8a8_q, vq_argmin,
-               window_attention)
+from . import (act_bf16, conv3, conv3_w8a8, matmul_w8a8, matmul_w8a8_q,
+               vq_argmin, window_attention)
 
 MODULES = {'conv3': conv3, 'window_attention': window_attention,
            'vq_argmin': vq_argmin, 'matmul_w8a8': matmul_w8a8,
-           'matmul_w8a8_q': matmul_w8a8_q, 'conv3_w8a8': conv3_w8a8}
+           'matmul_w8a8_q': matmul_w8a8_q, 'conv3_w8a8': conv3_w8a8,
+           'act_bf16': act_bf16}
 
 
 def build_all() -> None:

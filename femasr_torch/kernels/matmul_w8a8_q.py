@@ -88,6 +88,23 @@ def weight_tc(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return pack_weight_tc(w_q), s_w
 
 
+def tc_operands(weight: torch.Tensor,
+                packed: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                what: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core route's (packed codes, s_w) of an (N, K) weight:
+    `packed` after a check of its layout, or `weight_tc(weight)`."""
+    n, k = weight.shape
+    w_q, s_w = weight_tc(weight) if packed is None else packed
+    want = (-(-n // TC_COLS), k // TC_CHUNK, TC_COLS, TC_CHUNK)
+    if (tuple(w_q.shape) != want or w_q.dtype != torch.int8
+            or tuple(s_w.shape) != (n,) or s_w.dtype != torch.float32
+            or not w_q.is_contiguous()):
+        raise ValueError(f'{what}: packed weight {w_q.dtype} '
+                         f'{tuple(w_q.shape)}, {s_w.dtype} '
+                         f'{tuple(s_w.shape)} for ({n}, {k})')
+    return w_q, s_w
+
+
 def _fn():
     lib = _build.load('matmul_w8a8_q')
     fn = lib.femasr_matmul_w8a8_q
@@ -140,14 +157,7 @@ def matmul_w8a8_q(x_q: torch.Tensor, s_x: torch.Tensor, weight: torch.Tensor,
     if route == DP4A:
         w_q, s_w = quantize_weight(weight, 1)
     else:
-        w_q, s_w = weight_tc(weight) if packed is None else packed
-        want = (-(-n // TC_COLS), k // TC_CHUNK, TC_COLS, TC_CHUNK)
-        if (tuple(w_q.shape) != want or w_q.dtype != torch.int8
-                or tuple(s_w.shape) != (n,) or s_w.dtype != torch.float32
-                or not w_q.is_contiguous()):
-            raise ValueError(f'matmul_w8a8_q: packed weight {w_q.dtype} '
-                             f'{tuple(w_q.shape)}, {s_w.dtype} '
-                             f'{tuple(s_w.shape)} for ({n}, {k})')
+        w_q, s_w = tc_operands(weight, packed, 'matmul_w8a8_q')
     bk = None if bias is None else bias.detach().float().contiguous()
     for t in (sx, w_q, s_w, bk):
         if t is not None and t.device != x_q.device:

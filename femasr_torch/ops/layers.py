@@ -19,20 +19,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import matmul_w8a8 as mm
+from ..kernels import matmul_w8a8_q as mmq
 from ..kernels._w8a8 import quantize, scale_of
+from ..kernels.act_bf16 import act_bf16
 from ..kernels.conv3 import conv3
 from ..kernels.conv3_w8a8 import conv3_w8a8
 from ..kernels.matmul_w8a8 import matmul_w8a8
-from ..kernels.matmul_w8a8_q import TC, matmul_w8a8_q, route_of, weight_tc
+from ..kernels.matmul_w8a8_q import matmul_w8a8_q, weight_tc
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose float32 parameters are cast to the input dtype."""
+    """nn.Conv2d whose float32 parameters are cast to the input dtype.
+
+    The bias is added after the convolution, in x.dtype, as flax's nn.Conv
+    adds it: outside float32 the two round apart (one rounding of the
+    fused conv + bias moves ~5% of bf16 outputs by more than an ulp)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding)
+        w = self.weight.to(x.dtype)
+        if self.bias is None or x.dtype == torch.float32:
+            return F.conv2d(x, w, self.bias, self.stride, self.padding)
+        return (F.conv2d(x, w, None, self.stride, self.padding)
+                + self.bias.to(x.dtype)[:, None, None])
 
 
 class Linear(nn.Linear):
@@ -72,11 +81,11 @@ class LinearInt8(nn.Linear):
         chain (matmul_w8a8_q), with an optional fused `act` and, with
         out_int8, a re-quantized (y_q, s_y) output; otherwise out_dtype.
 
-    On the card the chain's tensor-core route takes the weight quantized
-    and packed (`weight_tc`) once per weight storage, device, dtype and
-    version: the weights are frozen, and a move, a cast, a load or an
-    in-place change of the parameter renews the copy. (An in-place edit
-    through `weight.data` bumps no version and is not seen.)
+    On the card the tensor-core routes of both forms take the weight
+    quantized and packed (`weight_tc`) once per weight storage, device,
+    dtype and version: the weights are frozen, and a move, a cast, a load
+    or an in-place change of the parameter renews the copy. (An in-place
+    edit through `weight.data` bumps no version and is not seen.)
     """
 
     _tc = None   # (key, packed codes, s_w) of the tensor-core route
@@ -92,23 +101,28 @@ class LinearInt8(nn.Linear):
 
     def forward(self, x, act: Optional[str] = None, out_int8: bool = False,
                 out_dtype: torch.dtype = torch.float32):
+        k, n = self.in_features, self.out_features
         if isinstance(x, tuple):
             x_q, s_x = x
-            packed = (self._tc_weight() if x_q.is_cuda and route_of(
-                self.in_features, self.out_features, 0) == TC else None)
+            packed = (self._tc_weight() if x_q.is_cuda
+                      and mmq.route_of(k, n, 0) == mmq.TC else None)
             return matmul_w8a8_q(x_q, s_x, self.weight, self.bias, act=act,
                                  out_int8=out_int8, out_dtype=out_dtype,
                                  packed=packed)
         if act is not None or out_int8:
             raise ValueError('fused act / int8 output are chain-mode features')
-        return matmul_w8a8(x, self.weight, self.bias)
+        packed = (self._tc_weight() if x.is_cuda
+                  and mm.route_of(k, n, 0) == mm.TC else None)
+        return matmul_w8a8(x, self.weight, self.bias, packed=packed)
 
 
 class GroupNorm(nn.Module):
     """GroupNorm with float32 statistics in the E[x^2] - E[x]^2 form.
 
     Matches femasr_tpu GroupNorm ('chanraw'): per-channel raw moments,
-    folded into groups, variance clamped at 0.
+    folded into groups, variance clamped at 0; then, as there, the
+    normalize runs in x.dtype as (x - mean) * (inv * weight) + bias, with
+    mean, inv * weight and bias rounded to x.dtype and each op rounding.
     """
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
@@ -119,8 +133,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def affine(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-(sample, channel) float32 (a, b) with norm(x) = x * a + b."""
+    def _moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-(sample, channel) float32 group mean and 1 / sqrt(var + eps)."""
         b, c = x.shape[:2]
         g = self.num_groups
         xf = x.float()
@@ -130,14 +144,22 @@ class GroupNorm(nn.Module):
         mean2 = m2.view(b, g, c // g).mean(-1)
         var = (mean2 - mean.square()).clamp_min(0.0)
         inv = torch.rsqrt(var + self.eps)
-        a = inv.repeat_interleave(c // g, 1) * self.weight
-        shift = self.bias - mean.repeat_interleave(c // g, 1) * a
-        return a, shift
+        return (mean.repeat_interleave(c // g, 1),
+                inv.repeat_interleave(c // g, 1))
+
+    def affine(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-(sample, channel) float32 (a, b) with norm(x) = x * a + b
+        (the conv3 kernel's prologue, in f32)."""
+        mean, inv = self._moments(x)
+        a = inv * self.weight
+        return a, self.bias - mean * a
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, shift = self.affine(x)
-        y = x.float() * a[:, :, None, None] + shift[:, :, None, None]
-        return y.to(x.dtype)
+        mean, inv = self._moments(x)
+        dt = x.dtype
+        sub = mean.to(dt)[:, :, None, None]
+        mul = (inv * self.weight).to(dt)[:, :, None, None]
+        return (x - sub) * mul + self.bias.to(dt)[:, None, None]
 
 
 class NormLayer(nn.Module):
@@ -155,6 +177,18 @@ class NormLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)
+
+
+def silu_gelu(x: torch.Tensor, act: str) -> torch.Tensor:
+    """SiLU or GELU as the JAX package computes them: in bfloat16, its op
+    sequences rounded after every op (the act_bf16 kernel on the card);
+    otherwise F.silu, and GELU exact (erf) in float32, tanh elsewhere."""
+    if x.dtype == torch.bfloat16:
+        return act_bf16(x, act)
+    if act == 'silu':
+        return F.silu(x)
+    return F.gelu(x, approximate='none' if x.dtype == torch.float32
+                  else 'tanh')
 
 
 class ActLayer(nn.Module):
@@ -177,11 +211,8 @@ class ActLayer(nn.Module):
             return F.leaky_relu(x, 0.2)
         if at == 'prelu':
             return F.prelu(x, self.func.weight.to(x.dtype))
-        if at == 'silu':
-            return F.silu(x)
-        if at == 'gelu':
-            return F.gelu(x, approximate='none' if x.dtype == torch.float32
-                          else 'tanh')
+        if at in ('silu', 'gelu'):
+            return silu_gelu(x, at)
         return x
 
 

@@ -18,11 +18,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.window_attention import window_attention
-from .layers import Conv2d, Linear, LinearInt8, quantize_rows
+from .layers import Conv2d, Linear, LinearInt8, quantize_rows, silu_gelu
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,7 +82,9 @@ def window_reverse(windows: torch.Tensor, window_size: int, h: int,
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, f32 statistics in the E[x^2] form."""
+    """LayerNorm over the last axis, f32 statistics in the E[x^2] form;
+    the normalize in x.dtype, rounding where femasr_tpu's LayerNormTPU
+    rounds: (x - mean) * (inv * weight) + bias, each op in x.dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -96,11 +97,14 @@ class LayerNorm(nn.Module):
         m1 = xf.mean(-1, keepdim=True)
         m2 = xf.square().mean(-1, keepdim=True)
         inv = torch.rsqrt((m2 - m1.square()).clamp_min(0.0) + self.eps)
-        return ((xf - m1) * (inv * self.weight) + self.bias).to(x.dtype)
+        dt = x.dtype
+        return ((x - m1.to(dt)) * (inv * self.weight).to(dt)
+                + self.bias.to(dt))
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2; GELU is exact (erf) in f32, tanh otherwise.
+    """fc1 -> GELU -> fc2; GELU is exact (erf) in f32, the tanh form
+    rounded as the JAX package rounds in bf16 (`layers.silu_gelu`).
 
     int8: both linears per-tensor w8a8. chain: the per-token int8 chain,
     quantize_rows -> fc1 with a fused tanh GELU and int8 output -> fc2 to
@@ -119,10 +123,7 @@ class Mlp(nn.Module):
         if self.chain:
             h = self.fc1(quantize_rows(x), act='gelu', out_int8=True)
             return self.fc2(h, out_dtype=x.dtype)
-        x = self.fc1(x)
-        x = F.gelu(x, approximate='none' if x.dtype == torch.float32
-                   else 'tanh')
-        return self.fc2(x)
+        return self.fc2(silu_gelu(self.fc1(x), 'gelu'))
 
 
 class WindowAttention(nn.Module):

@@ -295,10 +295,13 @@ def test_int8_decode_indices_matches_jax(int8_pair):
 
 def test_int8_decode_indices_bf16_matches_jax(int8_pair):
     """The decode runs in bf16 from the gathered codes on, as JAX's
-    get_codebook_entry casts them to the model dtype. XLA keeps excess
-    precision inside its fusions, so the JAX run rounds its norms and
-    activations to bf16 at other points than the port's eager ops: the
-    int8 layers are all forced, and the output is held to the JAX
+    get_codebook_entry casts them to the model dtype. The port's norms,
+    activations and conv biases round where the JAX source rounds
+    (tests/test_torch_rounding.py), but under jit XLA drops a bf16
+    rounding whose result is cast back to f32 (its excess precision): a
+    SiLU's last product reaches the next int8 quantize unrounded, so the
+    JAX conv sees other codes than its captured (rounded) input gives.
+    The int8 layers are all forced, and the output is held to the JAX
     package's own bound for that fusion-order rounding of the bf16 int8
     tail (max 2%, mean 0.4%, PARITY.md). Every int8 layer's own float
     input was bf16: the decode ran in bf16, not in f32 cast at the end."""

@@ -10,7 +10,7 @@ only PyTorch is installed:
 import pytest
 import torch
 
-from femasr_torch.kernels import (conv3, conv3_w8a8, matmul_w8a8,
+from femasr_torch.kernels import (act_bf16, conv3, conv3_w8a8, matmul_w8a8,
                                   matmul_w8a8_q, vq_argmin, window_attention)
 from femasr_torch.kernels.tolerance import assert_bf16_close
 from femasr_torch.ops.swin import shifted_window_mask
@@ -148,16 +148,29 @@ def _w8a8_close(out, ref, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('m,k,n', [(300, 256, 768), (77, 40, 3)])
+@pytest.mark.parametrize('m,k,n', [(300, 256, 768), (77, 40, 3),
+                                   (65, 256, 256), (130, 64, 320),
+                                   (70, 1024, 64), (50, 100, 64)])
 def test_matmul_w8a8_kernel_matches_plain(gen, dtype, m, k, n):
+    """Both routes (tensor cores: K and N multiples of 64; qkv and proj
+    shapes with M off the 64-row tile; N = 320 leaves three of the second
+    N tile's four column warps past N; N = 64 one active warp column;
+    K = 1024 sixteen K chunks per tile) and dp4a (K = 40, K = 100)."""
     x = torch.randn(m, k, generator=gen).cuda().to(dtype)
     w = torch.randn(n, k, generator=gen).cuda()
     b = torch.randn(n, generator=gen).cuda()
+    tc = k % 64 == 0 and n % 64 == 0
+    assert matmul_w8a8.route_of(k, n, x.data_ptr()) == (
+        matmul_w8a8.TC if tc else matmul_w8a8.DP4A)
     for bias in (None, b):
         out = matmul_w8a8.matmul_w8a8(x, w, bias)
         ref = matmul_w8a8.matmul_w8a8_plain(x, w, bias)
         assert out.dtype == dtype and out.shape == (m, n)
         _w8a8_close(out, ref, dtype)
+    if tc:   # the weight packed once, as LinearInt8 passes it
+        out = matmul_w8a8.matmul_w8a8(x, w, b,
+                                      packed=matmul_w8a8_q.weight_tc(w))
+        _w8a8_close(out, matmul_w8a8.matmul_w8a8_plain(x, w, b), dtype)
     for act in ('gelu', 'silu', 'lrelu'):
         out = matmul_w8a8.matmul_w8a8(x, w, b, act=act)
         ref = matmul_w8a8.matmul_w8a8_plain(x, w, b, act=act)
@@ -311,6 +324,31 @@ def test_conv3_w8a8_kernel_matches_plain(gen, dtype, b, ci, o, h, w):
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-6 if
                                    dtype == torch.float32 else 2 ** -7,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize('act', ['silu', 'gelu'])
+def test_act_bf16_kernel_matches_plain(gen, act):
+    """The kernel against its twin (the JAX op sequence in bf16 as PyTorch
+    ops): 16-byte aligned (eight values per load, a ragged tail), a view
+    off the 16-byte grid (one value at a time), channels_last, and the
+    edges (zeros, huge values, +-inf, NaN)."""
+    x = torch.randn(70001, generator=gen).cuda() * 4
+    x[:8] = torch.tensor([0.0, -0.0, 88.0, -88.0, 1e30, -1e30, float('inf'),
+                          float('-inf')])
+    x[8] = float('nan')
+    x = x.bfloat16()
+    cl = torch.randn(2, 64, 9, 13, generator=gen).cuda().bfloat16() \
+        .contiguous(memory_format=torch.channels_last)
+    for t in (x, x[1:], cl):
+        before = act_bf16.launches
+        out = act_bf16.act_bf16(t, act)
+        assert act_bf16.launches == before + 1
+        ref = act_bf16.act_bf16_plain(t, act)
+        assert out.shape == t.shape and out.stride() == t.stride()
+        fin = ref.isfinite()
+        assert torch.equal(out.isnan(), ref.isnan())
+        assert torch.equal(out[ref.isinf()], ref[ref.isinf()])
+        assert_bf16_close(out[fin], ref[fin], 0.0)
 
 
 def test_int8_wrappers_count_launches(gen):

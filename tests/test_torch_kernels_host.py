@@ -1,22 +1,27 @@
-"""Host-side logic of the B3, B5 and B6 kernels, on the CPU.
+"""Host-side logic of the B3-B6 and act_bf16 kernels, on the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_kernels_cuda.py).
 What surrounds them is Python that runs here: the wrappers' choice of
 route and of codebook split, B5's and B6's packing of int8 weights into
-the tensor-core kernels' chunked layouts, a torch twin of B5's split of
-the int8-out row max (thread, quad, warp, block, cluster), and a torch
-twin of B3's search order (per-thread running minima over ascending
-codes, a reduction across the threads of a token, then the merge over
-code ranges), held against `vq_argmin_plain` on planted exact ties.
+the tensor-core kernels' chunked layouts (B4 takes B5's), the packed
+weight that LinearInt8 hands B4 and B5, a torch twin of B5's split of
+the int8-out row max (thread, quad, warp, block, cluster), a torch twin
+of B3's search order (per-thread running minima over ascending codes, a
+reduction across the threads of a token, then the merge over code
+ranges), held against `vq_argmin_plain` on planted exact ties, and
+act_bf16's twin against JAX's own op sequences.
 """
 
 import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from femasr_torch.kernels import conv3_w8a8, matmul_w8a8_q, vq_argmin
+from femasr_torch.kernels import (act_bf16, conv3_w8a8, matmul_w8a8,
+                                  matmul_w8a8_q, vq_argmin)
 from femasr_torch.kernels._w8a8 import quantize_weight, scale_of, tensor_scale
 
 
@@ -66,6 +71,65 @@ def test_matmul_w8a8_q_route_of(k, n, ptr, route):
     # fc1 (256 -> 1024) and fc2 (1024 -> 256) of the int8 lane take the
     # tensor cores; K or N off the 64 grid and unaligned inputs dp4a
     assert matmul_w8a8_q.route_of(k, n, ptr) == route
+
+
+@pytest.mark.parametrize('k,n,ptr,route', [
+    (256, 768, 0, matmul_w8a8.TC), (256, 256, 16, matmul_w8a8.TC),
+    (1024, 256, 0, matmul_w8a8.TC), (64, 320, 0, matmul_w8a8.TC),
+    (2048, 64, 0, matmul_w8a8.TC), (2112, 64, 0, matmul_w8a8.DP4A),
+    (100, 64, 0, matmul_w8a8.DP4A), (40, 3, 0, matmul_w8a8.DP4A),
+    (256, 96, 0, matmul_w8a8.DP4A), (256, 768, 8, matmul_w8a8.DP4A)])
+def test_matmul_w8a8_route_of(k, n, ptr, route):
+    # qkv (256 -> 768) and proj (256 -> 256) of the int8 lane take the
+    # tensor cores; K or N off the 64 grid, K past what a block keeps in
+    # shared memory, and unaligned inputs dp4a
+    assert matmul_w8a8.route_of(k, n, ptr) == route
+
+
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that reports is_cuda, to drive LinearInt8's card path
+    into a recording stand-in for the kernel wrapper."""
+    is_cuda = True
+
+
+@pytest.mark.parametrize('chain', [False, True])
+def test_linear_int8_passes_packed_weight_once_per_version(monkeypatch,
+                                                           chain):
+    """LinearInt8 hands B4 (per-tensor input) and B5 (chain input) on the
+    card its weight quantized and packed for the tensor-core route, one
+    copy per weight version; a shape off that route, or a CPU tensor,
+    gets none."""
+    from femasr_torch.ops import layers
+    seen = []
+
+    def rec(*args, packed=None, **kwargs):
+        seen.append(packed)
+    monkeypatch.setattr(layers, 'matmul_w8a8_q' if chain else 'matmul_w8a8',
+                        rec)
+
+    def run(lin, x):
+        if chain:
+            x = (x.to(torch.int8).as_subclass(_CudaLike),
+                 torch.ones(x.shape[0], 1))
+        lin(x)
+        return seen[-1]
+
+    lin = layers.LinearInt8(128, 320)
+    x = torch.randn(4, 128).as_subclass(_CudaLike)
+    first = run(lin, x)
+    w_q, s_w = quantize_weight(lin.weight, 1)
+    assert torch.equal(first[0], matmul_w8a8_q.pack_weight_tc(w_q))
+    assert torch.equal(first[1], s_w)
+    assert run(lin, x)[0] is first[0]                   # frozen: kept
+    with torch.no_grad():
+        lin.weight.mul_(-1)                             # a new version
+    again = run(lin, x)
+    assert again[0] is not first[0] and torch.equal(again[0], -first[0])
+    assert run(layers.LinearInt8(100, 64),
+               torch.randn(4, 100).as_subclass(_CudaLike)) is None
+    if not chain:
+        lin(torch.randn(4, 128))                        # the CPU path
+        assert seen[-1] is None
 
 
 @pytest.mark.parametrize('n,k', [(1024, 256), (256, 1024), (320, 64)])
@@ -230,3 +294,44 @@ def test_vq_kernel_order_tie_break_matches_plain(splits, k):
     z0 = torch.zeros(1, 32)
     assert torch.equal(_kernel_order_argmin(z0, cb, splits),
                        vq_argmin.vq_argmin_plain(z0, cb))
+
+
+def test_act_bf16_constants_are_bf16_roundings():
+    assert act_bf16.GELU_C1 == float(torch.tensor(0.044715).bfloat16())
+    assert act_bf16.GELU_C2 == float(torch.tensor(
+        math.sqrt(2 / math.pi)).bfloat16())
+
+
+@pytest.mark.parametrize('act', ['silu', 'gelu'])
+def test_act_bf16_twin_matches_jax_sequence(act):
+    """The twin (the kernel's plain version) against jax.nn.silu and
+    jax.nn.gelu(approximate=True) jitted in bf16, on normal values and on
+    the edges: zeros, subnormal-small and huge inputs, +-inf and NaN. XLA
+    flushes subnormal values to zero on the CPU, so the twin runs under
+    the same flush."""
+    rng = np.random.default_rng(7)
+    edges = [0.0, -0.0, 1e-30, -1e-30, 88.0, -88.0, 300.0, -300.0, 1e30,
+             -1e30, np.inf, -np.inf, np.nan]
+    x = np.concatenate([rng.normal(size=2035) * 4, edges]).astype(np.float32)
+    fn = {'silu': jax.nn.silu,
+          'gelu': lambda v: jax.nn.gelu(v, approximate=True)}[act]
+    ref = np.asarray(jax.jit(fn)(jnp.asarray(x, jnp.bfloat16)).astype(
+        jnp.float32))
+    xt = torch.from_numpy(x).bfloat16()
+    assert torch.set_flush_denormal(True)
+    try:
+        out = act_bf16.act_bf16(xt, act)   # CPU tensor: the twin
+    finally:
+        torch.set_flush_denormal(False)
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
+def test_act_bf16_wrapper_checks_its_input():
+    x = torch.randn(2, 3, 4, 5).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    y = act_bf16.act_bf16(x, 'silu')
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    with pytest.raises(TypeError):
+        act_bf16.act_bf16(x.float(), 'silu')
+    with pytest.raises(ValueError):
+        act_bf16.act_bf16(x, 'relu')
