@@ -30,8 +30,20 @@ Phases:
   4. profile one warm 512px bf16 forward per lane (device time by kernel
      group; in the int8 lane B6's launches and time per shape, B5's per
      instantiation: fc1 int8 out, fc2 bf16 out, and B4's per route);
-  5. print a JSON line of per-kernel numbers, the card's name and power
-     limit, and last `{"ok": true, "device": {...}}`.
+  5. train at release width (batch 8, gt 256, f32, TF32 off) through
+     `python -m femasr_torch.train_cli` on a seeded folder with seeded
+     weights: the LQ stage of options/train_FeMaSR_LQ_stage.yml for 8
+     iterations (B1 and B3 launches counted per iteration: 5 and 2, no
+     other kernel), resumed from its state at iteration 4 and held to the
+     uninterrupted run (1e-3); one LQ generator step held against the
+     plain versions (indices by B3's rule, loss 1e-5, gradients 1e-4 of
+     their max); the HQ stage of options/train_FeMaSR_HQ_pretrain_stage.yml
+     (semantic loss on) for 4 iterations; ms per iteration, images/s, peak
+     memory and a profile per stage; B1's f32 route and B3 at the training
+     shapes against their plain versions;
+  6. print a JSON line of per-kernel numbers (and the training numbers),
+     the card's name and power limit, and last `{"ok": true, "device":
+     {...}}`.
 
 Any failed phase exits non-zero before the last line is printed.
 """
@@ -195,7 +207,8 @@ def check_conv3(dev, results):
             kw = {}
             xa = x
             if pre:
-                a, s = gn.affine(x)
+                with torch.no_grad():   # gn's parameters require grad
+                    a, s = gn.affine(x)
                 kw = dict(scale=a, shift=s, pre_act='silu')
                 xa = F.silu(x.float() * a[:, :, None, None]
                             + s[:, :, None, None]).to(dtype)
@@ -834,11 +847,11 @@ def f32_check(dev, lane, state_dict, img, whole):
         store = {}
         with int8_forcing.record(model, store) if lane == 'int8' \
                 else contextlib.nullcontext():
-            out_k, _, idx_k = model(xp)
+            out_k, _, _, idx_k = model(xp)
         out_k = crop(out_k)
         with plain_kernels():
             if lane == 'int8':
-                out_u, _, idx_u = model(xp)
+                out_u, _, _, idx_u = model(xp)
                 info['unforced_index_agreement'] = (
                     idx_k[0] == idx_u[0]).float().mean().item()
                 info['unforced_mean_abs_diff'] = (
@@ -846,10 +859,10 @@ def f32_check(dev, lane, state_dict, img, whole):
                 del out_u
                 stats = {}
                 with int8_forcing.force(model, store, stats):
-                    out_p, _, idx_p = model(xp)
+                    out_p, _, _, idx_p = model(xp)
                 info['int8_layers'] = int8_boundary_summary(stats)
             else:
-                out_p, _, idx_p = model(xp)
+                out_p, _, _, idx_p = model(xp)
         del store
     sync(dev)
     out_p = crop(out_p)
@@ -909,7 +922,7 @@ def bf16_check(dev, state_dict, img, whole, ref, idx_ref):
         for name, ctx in (('kernels', contextlib.nullcontext()),
                           ('plain', plain_kernels())):
             with ctx:
-                out, _, idx = sr.model(xp)
+                out, _, _, idx = sr.model(xp)
             runs[name] = (out.float().clamp(0, 1)[:, :, :s4, :s4], idx[0])
     sync(dev)
     (out_k, idx_k), (out_p, idx_p) = runs['kernels'], runs['plain']
@@ -1124,6 +1137,469 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
     return out
 
 
+# -- phase 6: training ---------------------------------------------------------
+
+LQ_YML = 'options/train_FeMaSR_LQ_stage.yml'
+HQ_YML = 'options/train_FeMaSR_HQ_pretrain_stage.yml'
+TRAIN_IMAGES, TRAIN_GT = 16, 256
+LQ_ITERS, LQ_SAVE_AT, HQ_ITERS = 8, 4, 4
+# kernel launches per training iteration: LQ, the frozen HQ prior's conv3
+# tail (4 ResBlock convs + out_conv) and search, and the trainee's search
+# on detached tokens; HQ, the trainee's search only. No other kernel runs.
+TRAIN_LAUNCHES = {'lq': {'conv3': 5, 'vq_argmin': 2},
+                  'hq': {'conv3': 0, 'vq_argmin': 1}}
+RESUME_RTOL = 1e-3
+# a training iteration's kernels by group: the serving groups, then what
+# autograd and the f32 convs add (cuDNN's FFT and Winograd convolutions,
+# its weight-gradient kernels, the resize and pooling backward passes)
+TRAIN_KERNEL_GROUPS = KERNEL_GROUPS[:7] + (
+    ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'fft', 'winograd',
+                    'wgrad', 'dgrad')),) + KERNEL_GROUPS[8:]
+G_STEP_LOSS_RTOL, G_STEP_GRAD_TOL = 1e-5, 1e-4
+TRAIN_LOSSES = ('l_codebook', 'l_pix', 'l_percep', 'l_g_gan', 'l_d_real',
+                'l_d_fake')
+
+
+def seed_convs(module, gen) -> None:
+    """Conv weights U(-1/sqrt(fan_in), 1/sqrt(fan_in)) and biases
+    N(0, 0.05) from `gen`: frozen loss networks made from a seed."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                bound = m.weight[0].numel() ** -0.5
+                m.weight.copy_((torch.rand(m.weight.shape, generator=gen)
+                                * 2 - 1) * bound)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.05)
+
+
+def train_inputs(work: str) -> dict:
+    """A seeded folder of TRAIN_IMAGES GT images and their x4 LQ (area
+    downsampling in numpy), and seeded weights in the reference formats:
+    an HQ prior (release config), LPIPS-VGG (lpips package keys) and a
+    whole VGG19 (torchvision keys)."""
+    import cv2
+
+    from femasr_torch.losses import LPIPS, lpips_package_state
+    from femasr_torch.models import FeMaSRNet, init_weights
+    from femasr_torch.models.vgg_arch import (VGGFeatureExtractor,
+                                              torchvision_state)
+    paths = {k: os.path.join(work, k) for k in ('gt', 'lq')}
+    for p in paths.values():
+        os.makedirs(p)
+    rng = np.random.default_rng(8)
+    s = TRAIN_GT
+    for i in range(TRAIN_IMAGES):
+        gt = smooth_image(rng, s, s)
+        lq = gt.reshape(s // 4, 4, s // 4, 4, 3).mean(axis=(1, 3))
+        cv2.imwrite(os.path.join(paths['gt'], f'{i:02d}.png'), gt)
+        cv2.imwrite(os.path.join(paths['lq'], f'{i:02d}.png'),
+                    lq.round().astype(np.uint8))
+    hq = FeMaSRNet([[32, 1024, 512]], LQ_stage=False)
+    init_weights(hq, torch.Generator().manual_seed(11))
+    lp = LPIPS()
+    gen = torch.Generator().manual_seed(12)
+    seed_convs(lp, gen)
+    with torch.no_grad():
+        for i in range(5):
+            w = getattr(lp, f'lin{i}')
+            w.copy_(torch.rand(w.shape, generator=gen) / w.numel())
+    vgg = VGGFeatureExtractor(['pool5'], 'vgg19')
+    seed_convs(vgg, gen)
+    for name, obj in (('hq', {'params': hq.state_dict()}),
+                      ('lpips', lpips_package_state(lp)),
+                      ('vgg19', torchvision_state(vgg))):
+        paths[name] = os.path.join(work, f'{name}.pth')
+        torch.save(obj, paths[name])
+    return paths
+
+
+def release_options(yml: str, name: str, inputs: dict, iters: int,
+                    save_every: float) -> dict:
+    """A release training YAML at its own widths, losses and optimizers,
+    on the seeded folder and weights, for `iters` iterations, without the
+    validation block (metrics are not ported)."""
+    import yaml
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           yml)) as f:
+        opt = yaml.safe_load(f)
+    opt.pop('val')
+    data = opt['datasets']['train']
+    data.update(type='PairedImageDataset', dataroot_gt=inputs['gt'],
+                dataroot_lq=inputs['lq'], num_worker_per_gpu=2)
+    opt['datasets'] = {'train': data}
+    opt.update(name=name, device='cuda', manual_seed=0)
+    opt['train']['total_iter'] = iters
+    opt['logger'] = {'print_freq': 1, 'save_checkpoint_freq': save_every,
+                     'save_latest_freq': 1e9, 'use_tb_logger': False}
+    return opt
+
+
+def run_train_cli(work: str, opt: dict, *extra) -> tuple:
+    """python -m femasr_torch.train_cli -opt <json> in `work`; returns the
+    model and the run's log records."""
+    from femasr_torch import train_cli
+    opt_path = os.path.join(work, f'{opt["name"]}.json')
+    with open(opt_path, 'w') as f:
+        json.dump(opt, f)
+    log = os.path.join(work, 'experiments', opt['name'], 'train_log.jsonl')
+    seen = 0
+    if os.path.exists(log):
+        with open(log) as f:
+            seen = len(f.readlines())
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        model = train_cli.main(['-opt', opt_path, *extra])
+    finally:
+        os.chdir(cwd)
+    sync(model.device)
+    with open(log) as f:
+        records = [json.loads(line) for line in f.readlines()[seen:]]
+    return model, records
+
+
+def check_launches(counts: dict, stage: str, iters: int) -> None:
+    want = {name: TRAIN_LAUNCHES[stage].get(name, 0) * iters
+            for name in counts}
+    print(f'[train] {stage} stage, {iters} iterations: kernel launches '
+          f'{counts} (expected {want})', flush=True)
+    require(counts == want, f'{stage} training launches {counts}, expected '
+                            f'{want}')
+
+
+def check_losses(records: list, stage: str) -> None:
+    for r in records:
+        vals = [v for k, v in r.items() if k.startswith('l_')]
+        require(vals and np.isfinite(vals).all(),
+                f'{stage} iteration {r["iter"]}: non-finite losses {r}')
+
+
+def near_ties(z: torch.Tensor, cb: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor) -> tuple:
+    """(agreement, worst relative distance gap) of two index maps of the
+    same tokens: B3's rule (>= 0.9999 equal, the rest near-ties)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    diff = (a != b).nonzero().flatten()
+    gap = 0.0
+    if diff.numel():
+        zd, cd = z[diff].double(), cb.double()
+        d_a = (zd - cd[a[diff].long()]).square().sum(1)
+        d_b = (zd - cd[b[diff].long()]).square().sum(1)
+        gap = ((d_a - d_b).abs() / d_b.abs()).max().item()
+    return 1.0 - diff.numel() / a.numel(), gap
+
+
+def g_step_kernels_vs_plain(model, batch) -> dict:
+    """One LQ generator step in f32 through the kernels, then with every
+    wrapper on its plain version: the prior's and the trainee's indices
+    (B3's rule), the loss (G_STEP_LOSS_RTOL) and every gradient tensor
+    (G_STEP_GRAD_TOL of its max)."""
+    from femasr_torch import kernels
+    model.feed_data(batch)
+    tokens = {}
+
+    def grab(key):
+        def hook(mod, args, out):
+            z = args[0].detach()
+            tokens[key] = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1])
+        return hook
+    hooks = [model.net_hq.quantize_group[0].register_forward_hook(
+                 grab('prior')),
+             model.net_g.quantize_group[0].register_forward_hook(
+                 grab('trainee'))]
+    runs = {}
+    try:
+        for name, ctx in (('kernels', contextlib.nullcontext()),
+                          ('plain', plain_kernels())):
+            with ctx, counting_off(*kernels.MODULES.values()):
+                model.opt_g.zero_grad(set_to_none=True)
+                total, _, _, idx, gt_idx = model.g_backward(model.lq,
+                                                            model.gt)
+                grads = {n: p.grad.clone() for n, p in
+                         model.net_g.named_parameters() if p.grad is not None}
+            runs[name] = (total.item(), idx, gt_idx[0], grads,
+                          dict(tokens))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.opt_g.zero_grad(set_to_none=True)
+    (lk, ik, gk, grk, tok), (lp, ip, gp, grp, _) = runs['kernels'], \
+        runs['plain']
+    cb_hq = model.net_hq.quantize_group[0].embedding.weight.detach()
+    cb_g = model.net_g.quantize_group[0].embedding.weight.detach()
+    prior = near_ties(tok['prior'], cb_hq, gk, gp)
+    trainee = near_ties(tok['trainee'], cb_g, ik, ip)
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst = max(((grk[n] - grp[n]).abs().max() / grp[n].abs().max().clamp_min(
+        1e-30)).item() for n in grp)
+    info = dict(loss_kernels=lk, loss_plain=lp, loss_rel_diff=loss_rel,
+                worst_grad_diff_of_max=worst, grad_tensors=len(grp),
+                prior_index_agreement=prior[0], prior_worst_gap=prior[1],
+                trainee_index_agreement=trainee[0],
+                trainee_worst_gap=trainee[1])
+    print(f'[train] LQ G step f32, kernels vs plain versions: loss '
+          f'{lk:.6f} vs {lp:.6f} (rel {loss_rel:.2e}, tol '
+          f'{G_STEP_LOSS_RTOL}); {len(grp)} gradient tensors, worst '
+          f'{worst:.2e} of max (tol {G_STEP_GRAD_TOL}); prior indices '
+          f'{prior[0]:.6f} equal (worst gap {prior[1]:.1e}), trainee '
+          f'{trainee[0]:.6f} (worst gap {trainee[1]:.1e})', flush=True)
+    require(grk.keys() == grp.keys(), 'G step: different gradient sets')
+    for agree, gap in (prior, trainee):
+        require(agree >= 0.9999 and gap <= 1e-5,
+                f'G step indices disagree beyond near-ties: {info}')
+    require(loss_rel <= G_STEP_LOSS_RTOL and worst <= G_STEP_GRAD_TOL,
+            f'G step kernels vs plain: {info}')
+    return info
+
+
+def time_iterations(model, batch, reps: int, warm: int = 1) -> dict:
+    """ms per iteration and images/s on the host clock over synchronized
+    warm iterations of one batch."""
+    from femasr_torch import kernels
+    model.feed_data(batch)
+    with counting_off(*kernels.MODULES.values()):
+        for _ in range(warm):
+            model.optimize_parameters()
+        sync(model.device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model.optimize_parameters()
+        sync(model.device)
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    return dict(ms_per_iteration=ms, images_per_s=batch['gt'].shape[0]
+                * 1e3 / ms, reps=reps, gt_batch=list(batch['gt'].shape))
+
+
+def profile_iteration(model, batch, stage: str, wall_ms: float) -> dict:
+    """Device busy time of one warm iteration and its top kernel groups
+    (torch.profiler); the idle share is taken against `wall_ms`, the
+    iteration's time without the profiler (which slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from femasr_torch import kernels
+    model.feed_data(batch)
+    with counting_off(*kernels.MODULES.values()):
+        sync(model.device)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.optimize_parameters()
+            sync(model.device)
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    groups = {name: 0.0 for name, _ in TRAIN_KERNEL_GROUPS}
+    groups['other'] = 0.0
+    by_name = {}
+    for e in kern:
+        low = e.name.lower()
+        ms = e.time_range.elapsed_us() / 1e3
+        gname = next((g for g, keys in TRAIN_KERNEL_GROUPS
+                      if any(k in low for k in keys)), 'other')
+        groups[gname] += ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    busy = sum(groups.values())
+    idle = max(0.0, 1 - busy / wall_ms)
+    top = sorted(((g, v) for g, v in groups.items() if v > 0),
+                 key=lambda kv: -kv[1])
+    print(f'[train] {stage} profile, one warm iteration: device busy '
+          f'{busy:.1f} ms of {wall_ms:.1f} ms unprofiled (idle share '
+          f'{idle:.3f}; {wall:.1f} ms under the profiler); top groups: '
+          + ', '.join(f'{g} {v:.1f} ms' for g, v in top), flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f'[train]   top: {ms:8.2f} ms  {name[:100]}', flush=True)
+    return dict(unprofiled_wall_ms=wall_ms, profiled_wall_ms=wall,
+                device_busy_ms=busy, idle_share=idle, kernels=len(kern),
+                groups_ms=dict(top))
+
+
+def check_train_shapes(dev, results) -> None:
+    """B1's f32 FFMA route and B3 at the training shapes (batch 8, gt 256):
+    the kernel against its plain version, with its time, the plain
+    version's, the library call's and the bound."""
+    from femasr_torch.kernels import conv3 as c3
+    from femasr_torch.kernels import vq_argmin as vq
+    from femasr_torch.ops.layers import GroupNorm
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, c, h, w = 8, 64, 256, 256
+    x = torch.randn((b, c, h, w), generator=g, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    gn = GroupNorm(32, c).to(dev)
+    wt = (torch.rand((c, c, 3, 3), generator=g, device=dev) * 2 - 1) \
+        * (c * 9) ** -0.5
+    bias = torch.rand((c,), generator=g, device=dev) * 0.1
+    with torch.no_grad():
+        a, s = gn.affine(x)
+        xa = F.silu(x * a[:, :, None, None] + s[:, :, None, None])
+        kw = dict(scale=a, shift=s, pre_act='silu')
+        with counting_off(c3):
+            y = c3.conv3(x, wt, bias, **kw)
+            sync(dev)
+            ref = c3.conv3_plain(x, wt, bias, **kw)
+            err = (y - ref).abs().max().item()
+            ms = time_ms(lambda: c3.conv3(x, wt, bias, **kw), reps=5)
+        plain_ms = time_ms(lambda: c3.conv3_plain(x, wt, bias, **kw),
+                           reps=5)
+        with cudnn_autotuned():
+            lib_ms = time_ms(lambda: F.conv2d(xa, wt, bias, padding=1),
+                             reps=5)
+    bms, by = bound_ms(nbytes(x, y, wt, bias, a, s),
+                       2.0 * b * h * w * c * c * 9, torch.float32)
+    ok = torch.allclose(y, ref, atol=1e-4, rtol=1e-4)
+    print(f'[conv3] training shape x (8,64,256,256) -> 64 f32 (FFMA route), '
+          f'gn/silu prologue: max_abs_err={err:.3e} (tol 1e-4) ms={ms:.4f} '
+          f'plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (F.conv2d with '
+          f'bias, cuDNN autotuned, TF32 off) bound_ms={bms:.4f} ({by})',
+          flush=True)
+    require(ok, f'conv3 training shape: kernel disagrees ({err})')
+    results['conv3']['training'] = dict(
+        shape='x (8,64,256,256) -> 64 f32, gn+silu prologue (FFMA route)',
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=bms, bound_by=by)
+    del x, y, ref, xa
+
+    n, k, cdim = 8 * 32 * 32, 1024, 512
+    z = torch.randn((n, cdim), generator=g, device=dev)
+    cb = torch.randn((k, cdim), generator=g, device=dev)
+    with counting_off(vq):
+        idx = vq.vq_argmin(z, cb)
+        sync(dev)
+        ms = time_ms(lambda: vq.vq_argmin(z, cb))
+    ref = vq.vq_argmin_plain(z, cb)
+    agree, gap = near_ties(z, cb, idx, ref)
+    plain_ms = time_ms(lambda: vq.vq_argmin_plain(z, cb))
+    lib_ms = time_ms(lambda: torch.cdist(z, cb).argmin(1))
+    bms, by = bound_ms(nbytes(z, cb, idx), 2.0 * n * k * cdim + 2.0 * k
+                       * cdim, torch.float32)
+    print(f'[vq_argmin] training shape z (8192,512) x (1024,512) f32: index '
+          f'agreement={agree:.6f} (worst gap {gap:.1e}) ms={ms:.4f} '
+          f'plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} '
+          f'(cdist().argmin) bound_ms={bms:.4f} ({by})', flush=True)
+    require(agree >= 0.9999 and gap <= 1e-5,
+            f'vq_argmin training shape: agreement {agree}, gap {gap}')
+    results['vq_argmin']['training'] = dict(
+        shape='z (8192,512) x codebook (1024,512) f32', index_agreement=agree,
+        max_abs_err=gap, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=bms, bound_by=by)
+
+
+def first_batch(opt: dict) -> dict:
+    """A batch of the options' train set, as its loader makes it."""
+    from femasr_torch.data import build_dataset
+    dopt = dict(opt['datasets']['train'], phase='train')
+    data = build_dataset(dopt)
+    return torch.utils.data.default_collate(
+        [data[i] for i in range(dopt['batch_size_per_gpu'])])
+
+
+def train_phase(dev, work: str) -> dict:
+    """The port's training path at release width: the LQ stage through
+    train_cli (launches counted per iteration, resumed from its saved state
+    and held to the uninterrupted run), one G step held against the plain
+    versions, then the HQ stage; times, peak memory and a profile."""
+    from femasr_torch import kernels
+    inputs = train_inputs(work)
+    out = {}
+
+    # LQ stage, uninterrupted, saving the state at LQ_SAVE_AT
+    lq_opt = release_options(LQ_YML, 'smoke_lq', inputs, LQ_ITERS,
+                             LQ_SAVE_AT)
+    lq_opt['path'] = {'pretrain_network_hq': inputs['hq'],
+                      'pretrain_lpips': inputs['lpips'], 'strict_load': False}
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model, full = run_train_cli(work, lq_opt)
+    lq_seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(model.cri_perceptual is not None and model.use_dis,
+            'LQ stage: LPIPS or the GAN loss is off')
+    require([r['iter'] for r in full] == list(range(1, LQ_ITERS + 1)),
+            f'LQ stage logged {[r["iter"] for r in full]}')
+    check_losses(full, 'LQ')
+    check_launches(counts, 'lq', LQ_ITERS)
+    out['lq'] = dict(iterations=LQ_ITERS, seconds=lq_seconds,
+                     launches=counts, peak_memory_bytes=peak,
+                     losses=full[-1])
+    print(f'[train] LQ stage: {LQ_ITERS} iterations in {lq_seconds:.1f} s '
+          f'(model build and the first iterations included); peak '
+          f'max_memory_allocated {peak / 2**30:.2f} GiB; last losses '
+          + ', '.join(f'{k} {full[-1][k]:.4f}' for k in TRAIN_LOSSES),
+          flush=True)
+
+    # resumed at LQ_SAVE_AT: its losses against the uninterrupted run's
+    state = os.path.join(work, 'experiments', 'smoke_lq', 'training_states',
+                         f'{LQ_SAVE_AT}.state')
+    with counting_off(*kernels.MODULES.values()):
+        resumed, again = run_train_cli(
+            work, lq_opt, '--force_yml', f'path:resume_state={state}')
+    require([r['iter'] for r in again] == list(range(LQ_SAVE_AT + 1,
+                                                     LQ_ITERS + 1)),
+            f'resumed run logged {[r["iter"] for r in again]}')
+    worst = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                for a, b in zip(full[LQ_SAVE_AT:], again)
+                for k in TRAIN_LOSSES)
+    print(f'[train] LQ stage resumed at {LQ_SAVE_AT}: iterations '
+          f'{LQ_SAVE_AT + 1}-{LQ_ITERS} within {worst:.2e} relative of the '
+          f'uninterrupted run (tol {RESUME_RTOL})', flush=True)
+    require(worst <= RESUME_RTOL, f'resumed losses off by {worst}')
+    out['lq']['resume_worst_rel_diff'] = worst
+    del resumed
+
+    batch = first_batch(lq_opt)
+    out['lq']['g_step_kernels_vs_plain'] = g_step_kernels_vs_plain(model,
+                                                                   batch)
+    out['lq']['timing'] = time_iterations(model, batch, reps=3)
+    out['lq']['profile'] = profile_iteration(
+        model, batch, 'LQ', out['lq']['timing']['ms_per_iteration'])
+    del model
+    torch.cuda.empty_cache()
+
+    # HQ stage: the HQ prior trained on, with the semantic loss
+    hq_opt = release_options(HQ_YML, 'smoke_hq', inputs, HQ_ITERS, 1e9)
+    hq_opt['path'] = {'pretrain_network_g': inputs['hq'],
+                      'pretrain_lpips': inputs['lpips'],
+                      'pretrain_vgg': inputs['vgg19'], 'strict_load': False}
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model, records = run_train_cli(work, hq_opt)
+    hq_seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(model.use_semantic and model.cri_perceptual is not None,
+            'HQ stage: the semantic or the LPIPS loss is off')
+    check_losses(records, 'HQ')
+    check_launches(counts, 'hq', HQ_ITERS)
+    start = torch.load(inputs['hq'])['params'][
+        'quantize_group.0.embedding.weight']
+    moved = (model.net_g.quantize_group[0].embedding.weight.detach().cpu()
+             - start).abs().max().item()
+    print(f'[train] HQ stage: {HQ_ITERS} iterations in {hq_seconds:.1f} s; '
+          f'peak max_memory_allocated {peak / 2**30:.2f} GiB; the codebook '
+          f'moved by up to {moved:.3e}; last losses '
+          + ', '.join(f'{k} {v:.4f}' for k, v in records[-1].items()
+                      if k.startswith('l_')), flush=True)
+    require(moved > 0, 'HQ stage: the codebook did not change')
+    out['hq'] = dict(iterations=HQ_ITERS, seconds=hq_seconds,
+                     launches=counts, peak_memory_bytes=peak,
+                     codebook_max_change=moved, losses=records[-1])
+    batch = first_batch(hq_opt)
+    out['hq']['timing'] = time_iterations(model, batch, reps=2)
+    out['hq']['profile'] = profile_iteration(
+        model, batch, 'HQ', out['hq']['timing']['ms_per_iteration'])
+    for stage in ('lq', 'hq'):
+        t = out[stage]['timing']
+        print(f'[train] {stage.upper()} stage, gt batch {t["gt_batch"]}, f32 '
+              f'(TF32 off): {t["ms_per_iteration"]:.1f} ms per iteration, '
+              f'{t["images_per_s"]:.2f} images/s (host clock over '
+              f'{t["reps"]} synchronized warm iterations)', flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def tensor_core_counts() -> dict:
     """Tensor-core instructions in the SASS of each kernel library, from
     cuobjdump: HMMA / IMMA (mma.sync, float / integer), HGMMA / IGMMA
@@ -1199,11 +1675,15 @@ def main() -> int:
         counts, extra = main_path(dev, work)
     for lane in LANES:
         extra[lane]['profile'] = profile_forward(dev, lane)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        train = train_phase(dev, work)
+    check_train_shapes(dev, results)
 
     for name, how in REDESIGNED.items():
         print(f'[history] {name}: redesigned {how}; its earlier times stand '
               f'in PERF.md', flush=True)
-    line = {'kernels': [], 'main_path': extra}
+    line = {'kernels': [], 'main_path': extra, 'train': train}
     for name in kernels.MODULES:
         r = results[name]
         # launches: the main-path run of the lane that ported the kernel
@@ -1215,6 +1695,10 @@ def main() -> int:
             replaces=TPU_SOURCES[name], tpu_function=TPU_FUNCTIONS[name],
             launches=counts[lane][name],
             launches_by_lane={k: c[name] for k, c in counts.items()},
+            # the training path's own counts, per iteration
+            launches_training={f'{stage}_per_iteration': train[stage][
+                'launches'][name] / train[stage]['iterations']
+                for stage in ('lq', 'hq')},
             max_abs_err=r['max_abs_err'], ms=r['ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
             bound_by=r['bound_by'], library_ms=r['library_ms'],

@@ -1,9 +1,10 @@
-"""femasr_torch: the PyTorch/CUDA port of FeMaSR serving.
+"""femasr_torch: the PyTorch/CUDA port of FeMaSR serving and training.
 
 Counterpart of femasr_tpu (the JAX reference) with the same module layout
-(ops/, models/). Its Pallas TPU kernels are hand-written CUDA kernels for
-Hopper under kernels/ (sources in csrc/), built with nvcc at first use.
-Entry points run on the card unless the caller passes device='cpu'.
+(ops/, models/, losses/, train/, data/, utils/). Its Pallas TPU kernels are
+hand-written CUDA kernels for Hopper under kernels/ (sources in csrc/),
+built with nvcc at first use. Entry points (inference_cli, train_cli) run
+on the card unless the caller asks for the CPU.
 """
 
 __version__ = '0.1.0'

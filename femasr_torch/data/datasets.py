@@ -1,0 +1,149 @@
+"""Training data (counterpart of femasr_tpu/data/datasets.py, sampler.py
+and loader.py): PairedImageDataset through a plain torch DataLoader.
+
+Randomness is explicit and independent of the worker count: the sampler
+(`EpochSampler`) yields (index, seed) items, and the dataset draws its crop
+and flips from numpy.random.default_rng(seed), the seed being (manual_seed,
+epoch, position in the epoch). The order of an epoch is a permutation from
+(manual_seed, epoch). So a run resumed at iteration k sees the batches the
+uninterrupted run saw (`EpochSampler.start`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch.utils.data import DataLoader, Dataset, Sampler
+
+from .data_util import make_dataset
+from .transforms import augment, paired_random_crop
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """HWC float32 RGB in [0, 1]."""
+    import cv2
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise IOError(f'cannot read image: {path}')
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+
+
+def random_resize(img: np.ndarray, factor: float) -> np.ndarray:
+    import cv2
+    return cv2.resize(img, None, fx=factor, fy=factor,
+                      interpolation=cv2.INTER_CUBIC)
+
+
+def _chw(img: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1)))
+
+
+def _folder(root: str):
+    if root.endswith('.fmrs'):
+        raise NotImplementedError(
+            f'{root}: the JAX package\'s .fmrs shard store is not ported; '
+            'give an image folder')
+    return make_dataset(root)
+
+
+class PairedImageDataset(Dataset):
+    """LQ/GT pairs from two folders, paired by sorted order. In the train
+    phase: use_resize_crop (a random rescale of both, then matching
+    gt_size crops), use_flip, use_rot. Items are dicts of (3, H, W)
+    float32 tensors in [0, 1] and the two paths."""
+
+    def __init__(self, opt: dict):
+        self.opt = opt
+        self.gt_paths = _folder(opt['dataroot_gt'])
+        self.lq_paths = _folder(opt['dataroot_lq'])
+        if len(self.gt_paths) != len(self.lq_paths):
+            raise ValueError(f'{len(self.gt_paths)} GT images but '
+                             f'{len(self.lq_paths)} LQ images')
+
+    def __len__(self) -> int:
+        return len(self.gt_paths)
+
+    def __getitem__(self, item) -> Dict:
+        index, seed = item if isinstance(item, tuple) else (item, (item,))
+        rng = np.random.default_rng(seed)
+        gt_path, lq_path = self.gt_paths[index], self.lq_paths[index]
+        img_gt, img_lq = read_rgb(gt_path), read_rgb(lq_path)
+        if self.opt['phase'] == 'train':
+            gt_size = self.opt['gt_size']
+            scale = img_gt.shape[0] // img_lq.shape[0]
+            if self.opt.get('use_resize_crop', False):
+                size = int(rng.integers(gt_size, img_gt.shape[0] + 1))
+                size -= size % scale
+                factor = size / img_gt.shape[0]
+                img_gt = random_resize(img_gt, factor)
+                img_lq = random_resize(img_lq, factor)
+                img_gt, img_lq = paired_random_crop(img_gt, img_lq, gt_size,
+                                                    scale, rng, gt_path)
+            img_gt, img_lq = augment([img_gt, img_lq],
+                                     self.opt.get('use_flip', False),
+                                     self.opt.get('use_rot', False), rng)
+        return {'lq': _chw(img_lq), 'gt': _chw(img_gt), 'lq_path': lq_path,
+                'gt_path': gt_path}
+
+
+class BSRGANTrainDataset(Dataset):
+    """HQ-only data with on-the-fly BSRGAN degradation: needs the
+    degradations (ROADMAP A9)."""
+
+    def __init__(self, opt: dict):
+        raise NotImplementedError(
+            'BSRGANTrainDataset needs the BSRGAN degradations, not ported '
+            'yet (ROADMAP A9); train on a PairedImageDataset')
+
+
+DATASETS = {'PairedImageDataset': PairedImageDataset,
+            'BSRGANTrainDataset': BSRGANTrainDataset}
+
+
+def build_dataset(opt: dict) -> Dataset:
+    if opt['type'] not in DATASETS:
+        raise NotImplementedError(f'dataset {opt["type"]!r} is not ported')
+    return DATASETS[opt['type']](opt)
+
+
+class EpochSampler(Sampler):
+    """A seeded permutation per epoch over the (enlarged) dataset; yields
+    (index, per-sample seed). `start(epoch, skip)` sets the epoch and skips
+    its first `skip` items."""
+
+    def __init__(self, dataset_size: int, seed: int, ratio: int = 1):
+        self.dataset_size = dataset_size
+        self.seed = int(seed)
+        self.num_samples = math.ceil(dataset_size * ratio)
+        self.epoch, self.skip = 0, 0
+
+    def start(self, epoch: int, skip: int = 0) -> None:
+        self.epoch, self.skip = epoch, skip
+
+    def __iter__(self) -> Iterator[Tuple[int, Tuple[int, int, int]]]:
+        order = np.random.default_rng((self.seed, self.epoch)).permutation(
+            self.num_samples) % self.dataset_size
+        for pos in range(self.skip, self.num_samples):
+            yield int(order[pos]), (self.seed, self.epoch, pos)
+
+    def __len__(self) -> int:
+        return self.num_samples - self.skip
+
+
+def build_train_loader(dataset: Dataset, opt: dict, seed: int,
+                       pin_memory: bool = False
+                       ) -> Tuple[DataLoader, EpochSampler]:
+    """A DataLoader of full batches of `batch_size_per_gpu` over an
+    EpochSampler, with `num_worker_per_gpu` workers."""
+    sampler = EpochSampler(len(dataset), seed,
+                           opt.get('dataset_enlarge_ratio', 1))
+    workers = int(opt.get('num_worker_per_gpu', 0))
+    loader = DataLoader(
+        dataset, batch_size=opt['batch_size_per_gpu'], sampler=sampler,
+        num_workers=workers, drop_last=True, pin_memory=pin_memory,
+        generator=torch.Generator().manual_seed(seed),
+        persistent_workers=False)
+    return loader, sampler

@@ -73,6 +73,19 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """A kernel writes its result through a raw pointer into a fresh tensor,
+    which has no autograd edge: a kernel call on an input that needs a
+    gradient would cut the gradients of everything upstream. Raise instead
+    (on every device, so the CPU sees it too); a differentiable caller takes
+    the plain version itself."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f'{what}: an input requires grad and the kernel has no backward; '
+            f'call it under torch.no_grad() or take {what}_plain')
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f'{what}: CUDA error {err}')

@@ -61,6 +61,7 @@ def act_bf16(x: torch.Tensor, act: str) -> torch.Tensor:
         raise ValueError(f'act_bf16: unsupported act={act!r}')
     if x.dtype != torch.bfloat16:
         raise TypeError(f'act_bf16: needs bfloat16, got {x.dtype}')
+    _build.refuse_grad('act_bf16', x)
     if x.device.type == 'cpu':
         return act_bf16_plain(x, act)
     if x.device.type != 'cuda':

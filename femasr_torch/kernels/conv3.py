@@ -94,6 +94,7 @@ def conv3(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f'unsupported pre_act={pre_act!r} act={act!r}')
     if (scale is None) != (shift is None):
         raise ValueError('scale and shift go together')
+    _build.refuse_grad('conv3', x, weight, bias, scale, shift)
     if x.device.type == 'cpu':
         return conv3_plain(x, weight, bias, scale, shift, pre_act, act)
     if x.device.type != 'cuda':

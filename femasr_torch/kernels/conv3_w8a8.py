@@ -93,6 +93,7 @@ def conv3_w8a8(x: torch.Tensor, weight: torch.Tensor,
     channels_last memory.
     """
     check_act(act, 'conv3_w8a8')
+    _build.refuse_grad('conv3_w8a8', x, weight, bias)
     if x.device.type == 'cpu':
         return conv3_w8a8_plain(x, weight, bias, act)
     if x.device.type != 'cuda':

@@ -84,6 +84,7 @@ def matmul_w8a8(x: torch.Tensor, weight: torch.Tensor,
     computed here). Returns (..., N) in x.dtype.
     """
     check_act(act, 'matmul_w8a8')
+    _build.refuse_grad('matmul_w8a8', x, weight, bias)
     if x.device.type == 'cpu':
         return matmul_w8a8_plain(x, weight, bias, act)
     if x.device.type != 'cuda':

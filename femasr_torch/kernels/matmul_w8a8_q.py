@@ -130,6 +130,7 @@ def matmul_w8a8_q(x_q: torch.Tensor, s_x: torch.Tensor, weight: torch.Tensor,
     float32), N <= 1024.
     """
     check_act(act, 'matmul_w8a8_q')
+    _build.refuse_grad('matmul_w8a8_q', x_q, s_x, weight, bias)
     if x_q.device.type == 'cpu':
         return matmul_w8a8_q_plain(x_q, s_x, weight, bias, act, out_int8,
                                    out_dtype)

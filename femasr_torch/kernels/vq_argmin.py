@@ -86,6 +86,7 @@ def vq_argmin(z_flat: torch.Tensor, codebook: torch.Tensor,
     `splits` (ranges of the codebook, each searched by its own blocks)
     overrides `choose_splits`, for measurement.
     """
+    _build.refuse_grad('vq_argmin', z_flat, codebook)
     if z_flat.device.type == 'cpu':
         return vq_argmin_plain(z_flat, codebook)
     if z_flat.device.type != 'cuda' or codebook.device != z_flat.device:

@@ -79,6 +79,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: (nh, N, N) float32. mask: (nW, N, N) float32 or None; window b
     uses mask[b % nW]. Returns a new contiguous (B_, N, C) in q.dtype.
     """
+    _build.refuse_grad('window_attention', q, k, v, bias, mask)
     if q.device.type == 'cpu':
         return window_attention_plain(q, k, v, bias, mask, num_heads)
     if q.device.type != 'cuda':

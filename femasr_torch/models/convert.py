@@ -1,11 +1,15 @@
-"""Parameter conversion: JAX (flax) params -> torch state dict, and
+"""Parameter conversion: JAX (flax) params -> torch state dicts, and
 reference-format checkpoint loading (strict, or overlaid onto a seeded
 init as the JAX package's merge_params does).
 
 `femasr_param_mapping` is this package's copy of the flax-path -> torch-key
 table of femasr_tpu/models/convert.py; `from_flax` applies it backwards:
 conv kernels (kh, kw, I, O) -> (O, I, kh, kw), dense kernels (I, O) ->
-(O, I), norm scale -> weight.
+(O, I), norm scale -> weight. `discriminator_from_flax`, `vgg_from_flax`
+and `lpips_from_flax` carry the training networks' trees the same way.
+Checkpoints: the generator and the discriminator are saved and loaded in
+the reference's torch keys ({'params': ..., 'params_ema': ...} .pth files;
+the discriminator's spectral u / v as `conv{i}.weight_u` / `weight_v`).
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ def _swin_block_entries(fp: Tuple[str, ...], tp: str) -> Mapping_:
 
 def femasr_param_mapping(codebook_params, gt_resolution: int = 256,
                          LQ_stage: bool = False, scale_factor: int = 4,
-                         act_type: str = 'silu', swin_depth: int = 6
+                         act_type: str = 'silu',
+                         use_semantic_loss: bool = False, swin_depth: int = 6
                          ) -> Mapping_:
     """Flax path -> (torch key, flax-to-torch transform) for FeMaSRNet."""
     eff_scale = scale_factor if LQ_stage else 1
@@ -122,6 +127,8 @@ def femasr_param_mapping(codebook_params, gt_resolution: int = 256,
                                f'before_quant_group.{s}'))
         m.update(_conv_entries((f'after_quant_group_{s}', 'conv'),
                                f'after_quant_group.{s}.conv'))
+    if use_semantic_loss:
+        m.update(_conv_entries(('conv_semantic',), 'conv_semantic.0'))
     return m
 
 
@@ -129,17 +136,59 @@ def from_flax(params: Mapping[str, Any], codebook_params,
               **arch_kwargs) -> Dict[str, torch.Tensor]:
     """JAX params (nested dict of arrays) -> torch FeMaSRNet state dict.
 
-    arch_kwargs: gt_resolution, LQ_stage, scale_factor, act_type as for
-    femasr_param_mapping. Raises KeyError on a missing flax path.
+    arch_kwargs: gt_resolution, LQ_stage, scale_factor, act_type,
+    use_semantic_loss as for femasr_param_mapping. Raises KeyError on a
+    missing flax path.
     """
+    return _apply(params, femasr_param_mapping(codebook_params,
+                                               **arch_kwargs))
+
+
+def _apply(tree: Mapping[str, Any], mapping: Mapping_
+           ) -> Dict[str, torch.Tensor]:
     sd = {}
-    for path, (key, to_torch) in femasr_param_mapping(
-            codebook_params, **arch_kwargs).items():
-        node = params
+    for path, (key, to_torch) in mapping.items():
+        node = tree
         for p in path:
             node = node[p]
         sd[key] = torch.from_numpy(
             to_torch(np.asarray(node, dtype=np.float32)).copy())
+    return sd
+
+
+def discriminator_from_flax(params: Mapping[str, Any],
+                            spectral: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX UNetDiscriminatorSN params + its 'spectral' collection -> the
+    port's (and the reference's) state dict."""
+    m: Mapping_ = {}
+    for i in (0, 9):
+        m.update(_conv_entries((f'conv{i}',), f'conv{i}'))
+    for i in range(1, 9):
+        m[(f'conv{i}', 'kernel')] = (f'conv{i}.weight_orig', _conv_w)
+    sd = _apply(params, m)
+    for i in range(1, 9):
+        for leaf in ('u', 'v'):
+            sd[f'conv{i}.weight_{leaf}'] = torch.from_numpy(np.array(
+                spectral[f'conv{i}'][leaf], dtype=np.float32))
+    return sd
+
+
+def vgg_from_flax(params: Mapping[str, Any], prefix: str = 'vgg_net.'
+                  ) -> Dict[str, torch.Tensor]:
+    """JAX VGGFeatureExtractor params -> VGGFeatureExtractor keys."""
+    m: Mapping_ = {}
+    for name in params:
+        m.update(_conv_entries((name,), prefix + name))
+    return _apply(params, m)
+
+
+def lpips_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX LPIPS params -> the port's LPIPS keys."""
+    sd = vgg_from_flax(params['net'], prefix='net.vgg_net.')
+    for i in range(5):
+        sd[f'lin{i}'] = torch.from_numpy(np.array(params[f'lin{i}'],
+                                                  dtype=np.float32))
     return sd
 
 

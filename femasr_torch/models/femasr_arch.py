@@ -6,6 +6,12 @@ convs with the GroupNorm-affine + SiLU prologue, out_conv with bias only),
 the placement of the JAX serving tail; every other conv is F.conv2d.
 Parameters stay float32; the compute dtype is that of the input.
 
+Training runs the same forward with differentiable=True: the conv3 tail
+and the Swin attention core take their kernels' plain versions (the same
+functions under autograd; the kernels have no backward, as the JAX
+package's Pallas kernels have no VJP), while the codebook search stays a
+kernel on the detached tokens.
+
 The int8 serving lane (int8_tail, int8_levels, int8_enc_up, int8_swin,
 int8_mlp, as in the JAX FeMaSRNet) swaps convs and linears for their w8a8
 layers with the same parameters, so one state dict serves both lanes.
@@ -14,12 +20,12 @@ layers with the same parameters, so one state dict serves both lanes.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..kernels.conv3 import conv3
+from ..kernels.conv3 import conv3, conv3_plain
 from ..ops.layers import (CombineQuantBlock, Conv2d, Conv2dInt8, ResBlock,
                           Upsample)
 from ..ops.quantize import VectorQuantizer
@@ -76,10 +82,13 @@ class DecoderBlock(nn.Module):
                      int8=int8))
         self.kernel = kernel
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
         if self.kernel:  # upsample and conv then emit channels_last
             x = x.contiguous(memory_format=torch.channels_last)
-        return self.block(x)
+        for m in self.block:
+            x = m(x, differentiable) if isinstance(m, ResBlock) else m(x)
+        return x
 
 
 class MultiScaleEncoder(nn.Module):
@@ -111,20 +120,23 @@ class MultiScaleEncoder(nn.Module):
                 res *= 2
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> List[torch.Tensor]:
         x = self.in_conv(x)
         outputs = []
         for m in self.blocks:
-            x = m(x)
+            x = m(x, differentiable) if isinstance(m, SwinLayers) else m(x)
             outputs.append(x)
         return outputs
 
 
 class FeMaSRNet(nn.Module):
-    """FeMaSR generator (femasr_arch.py:214-479), serving forward.
+    """FeMaSR generator (femasr_arch.py:214-479).
 
     codebook_params: [[scale, n_e, e_dim], ...] low -> high resolution;
-    release config [[32, 1024, 512]].
+    release config [[32, 1024, 512]]. use_quantize and use_semantic_loss
+    (the 512-channel `conv_semantic` head, trained against frozen VGG
+    features) as in the JAX FeMaSRNet.
 
     Serving-only int8 lane (femasr_tpu FeMaSRNet's flags): int8_tail runs
     the last int8_levels decoder levels and out_conv in w8a8 (instead of
@@ -137,14 +149,18 @@ class FeMaSRNet(nn.Module):
                  in_channel: int = 3, gt_resolution: int = 256,
                  LQ_stage: bool = False, norm_type: str = 'gn',
                  act_type: str = 'silu', scale_factor: int = 4,
+                 use_quantize: bool = True, use_semantic_loss: bool = False,
                  int8_tail: bool = False, int8_levels: int = 1,
                  int8_enc_up: bool = False, int8_swin: bool = False,
                  int8_mlp: bool = False):
         super().__init__()
         params = [[int(v) for v in p] for p in codebook_params]
         self.codebook_scale = [p[0] for p in params]
+        self.codebook_params = params
         self.gt_resolution = gt_resolution
         self.LQ_stage = LQ_stage
+        self.use_quantize = use_quantize
+        self.use_semantic_loss = use_semantic_loss
         self.scale_factor = scale_factor if LQ_stage else 1
         self.max_depth = int(math.log2(gt_resolution // self.codebook_scale[0]))
         encode_depth = int(math.log2(
@@ -181,7 +197,8 @@ class FeMaSRNet(nn.Module):
 
         quantizers, before_quant, after_quant = [], [], []
         for s, (scale, n_e, e_dim) in enumerate(params):
-            quantizers.append(VectorQuantizer(n_e, e_dim))
+            quantizers.append(VectorQuantizer(n_e, e_dim,
+                                              lq_stage=LQ_stage))
             scale_in_ch = CHANNEL_QUERY_DICT[scale]
             if s == 0:
                 before_in, comb_ch1, comb_ch2 = scale_in_ch, e_dim, 0
@@ -194,22 +211,34 @@ class FeMaSRNet(nn.Module):
         self.quantize_group = nn.ModuleList(quantizers)
         self.before_quant_group = nn.ModuleList(before_quant)
         self.after_quant_group = nn.ModuleList(after_quant)
+        if use_semantic_loss:
+            self.conv_semantic = nn.Sequential(
+                Conv2d(params[0][2], 512, 1), nn.ReLU())
 
-    def _out_conv(self, x: torch.Tensor) -> torch.Tensor:
+    def _out_conv(self, x: torch.Tensor,
+                  differentiable: bool = False) -> torch.Tensor:
         if self.int8_tail:
             return self.out_conv(x)
-        return conv3(x.contiguous(memory_format=torch.channels_last),
-                     self.out_conv.weight, self.out_conv.bias)
+        conv = conv3_plain if differentiable else conv3
+        return conv(x.contiguous(memory_format=torch.channels_last),
+                    self.out_conv.weight, self.out_conv.bias)
 
-    def encode_and_decode(self, x: torch.Tensor):
-        """x: (B, 3, H, W) in [0, 1], in the compute dtype.
+    def encode_and_decode(self, x: torch.Tensor,
+                          gt_indices: Optional[Sequence[torch.Tensor]] = None,
+                          vgg_feat: Optional[torch.Tensor] = None,
+                          differentiable: bool = False):
+        """x: (B, 3, H, W) in [0, 1], in the compute dtype; no gradient
+        flows back into it.
 
-        Returns (out_img, codebook_loss, indices_list).
+        gt_indices: the frozen HQ prior's codes per codebook scale (LQ-stage
+        training); vgg_feat: frozen VGG relu4_4 features of x (the semantic
+        loss, with use_semantic_loss). differentiable: see the module doc.
+        Returns (out_img, codebook_loss, semantic_loss, indices_list).
         """
-        enc_feats = self.multiscale_encoder(x)
+        enc_feats = self.multiscale_encoder(x.detach(), differentiable)
         enc_feats = enc_feats[-3:] if self.LQ_stage else enc_feats[::-1]
 
-        codebook_losses, indices_list = [], []
+        codebook_losses, semantic_losses, indices_list = [], [], []
         quant_idx = 0
         prev_dec_feat = prev_quant_feat = None
         out = enc_feats[0]
@@ -220,7 +249,15 @@ class FeMaSRNet(nn.Module):
                 if prev_dec_feat is not None:
                     feat = torch.cat([feat, prev_dec_feat], dim=1)
                 feat = self.before_quant_group[quant_idx](feat)
-                z_quant, loss, indices = self.quantize_group[quant_idx](feat)
+                z_quant, loss, indices = self.quantize_group[quant_idx](
+                    feat, None if gt_indices is None
+                    else gt_indices[quant_idx])
+                if self.use_semantic_loss and vgg_feat is not None:
+                    sem = self.conv_semantic(z_quant)
+                    semantic_losses.append(
+                        (sem.float() - vgg_feat.float()).square().mean())
+                if not self.use_quantize:
+                    z_quant = feat
                 out = self.after_quant_group[quant_idx](z_quant,
                                                         prev_quant_feat)
                 codebook_losses.append(loss)
@@ -229,11 +266,13 @@ class FeMaSRNet(nn.Module):
                 prev_quant_feat = z_quant
             elif self.LQ_stage:
                 out = out + enc_feats[i]
-            out = self.decoder_group[i](out)
+            out = self.decoder_group[i](out, differentiable)
             prev_dec_feat = out
 
-        out_img = self._out_conv(out)
-        return out_img, sum(codebook_losses), indices_list
+        out_img = self._out_conv(out, differentiable)
+        semantic = (sum(semantic_losses) if semantic_losses
+                    else torch.zeros((), device=out_img.device))
+        return out_img, sum(codebook_losses), semantic, indices_list
 
     def decode_indices(self, indices: torch.Tensor,
                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -246,8 +285,14 @@ class FeMaSRNet(nn.Module):
             x = dec(x)
         return self._out_conv(x)
 
-    def forward(self, x: torch.Tensor):
-        return self.encode_and_decode(x)
+    def forward(self, x: torch.Tensor,
+                gt_indices: Optional[Sequence[torch.Tensor]] = None,
+                vgg_feat: Optional[torch.Tensor] = None,
+                train: bool = False, differentiable: bool = False):
+        """encode_and_decode; `train` is accepted for the JAX signature (the
+        model has no train-only layer)."""
+        return self.encode_and_decode(x, gt_indices, vgg_feat,
+                                      differentiable)
 
 
 @torch.no_grad()

@@ -62,8 +62,15 @@ def seeded_init(model: torch.nn.Module) -> None:
 
 
 class SRInferencer:
-    """An LQ-stage FeMaSRNet (gn + silu) with frozen weights on one device,
-    plus the serving paths.
+    """A FeMaSRNet with frozen weights on one device, plus the serving
+    paths.
+
+    lq_stage, gt_resolution, norm_type, act_type: the model, with the JAX
+    SRInferencer's defaults (the LQ-stage x4 release model, gn + silu).
+    lq_stage=False serves the HQ model's reconstruction (scale 1). A gn +
+    silu model runs its last decoder level through the conv3 kernel; any
+    other norm or activation takes the plain layers there. `in` and `bn`
+    are not ported (ROADMAP A12) and raise.
 
     state_dict: reference-key state dict; None gives a seeded (seed 0)
     random init. It is overlaid onto that init as the JAX package's
@@ -80,12 +87,16 @@ class SRInferencer:
                  max_tile_batch: int = 1, device='cuda',
                  int8_tail: bool = False, int8_levels: int = 1,
                  int8_enc_up: bool = False, int8_swin: bool = False,
-                 int8_mlp: bool = False, strict: bool = False):
+                 int8_mlp: bool = False, strict: bool = False,
+                 lq_stage: bool = True, gt_resolution: int = 256,
+                 norm_type: str = 'gn', act_type: str = 'silu'):
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
         model = FeMaSRNet(codebook_params=[list(p) for p in codebook_params],
-                          LQ_stage=True, scale_factor=scale_factor,
+                          LQ_stage=lq_stage, scale_factor=scale_factor,
+                          gt_resolution=gt_resolution, norm_type=norm_type,
+                          act_type=act_type,
                           int8_tail=int8_tail, int8_levels=int8_levels,
                           int8_enc_up=int8_enc_up, int8_swin=int8_swin,
                           int8_mlp=int8_mlp)
@@ -104,7 +115,7 @@ class SRInferencer:
 
     def _run(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            out, _, _ = self.model(x.to(self.device, self.dtype))
+            out = self.model(x.to(self.device, self.dtype))[0]
             return out.float().clamp_(0.0, 1.0)
 
     # -- whole image -------------------------------------------------------
@@ -209,8 +220,8 @@ def load_inferencer(weight_path: str, scale_factor: int = 4,
                     dtype: torch.dtype = torch.float32, device='cuda',
                     **kwargs) -> SRInferencer:
     """SRInferencer from a reference-format torch .pth (kwargs go to
-    SRInferencer: codebook_params, max_tile_batch, the int8 flags,
-    strict)."""
+    SRInferencer: codebook_params, max_tile_batch, the int8 flags, strict,
+    lq_stage, gt_resolution, norm_type, act_type)."""
     resolve_device(device)
     sd = load_torch_checkpoint(weight_path)
     return SRInferencer(sd, scale_factor=scale_factor, dtype=dtype,

@@ -23,7 +23,7 @@ from ..kernels import matmul_w8a8 as mm
 from ..kernels import matmul_w8a8_q as mmq
 from ..kernels._w8a8 import quantize, scale_of
 from ..kernels.act_bf16 import act_bf16
-from ..kernels.conv3 import conv3
+from ..kernels.conv3 import conv3, conv3_plain
 from ..kernels.conv3_w8a8 import conv3_w8a8
 from ..kernels.matmul_w8a8 import matmul_w8a8
 from ..kernels.matmul_w8a8_q import matmul_w8a8_q, weight_tc
@@ -45,11 +45,18 @@ class Conv2d(nn.Conv2d):
 
 
 class Linear(nn.Linear):
-    """nn.Linear whose float32 parameters are cast to the input dtype."""
+    """nn.Linear whose float32 parameters are cast to the input dtype.
+
+    The bias is added after the product, in x.dtype, as flax's nn.Dense
+    adds it: outside float32 the product rounds, then the sum (one rounding
+    of the fused product + bias moves ~5% of bf16 outputs by more than an
+    ulp)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        w = self.weight.to(x.dtype)
+        if self.bias is None or x.dtype == torch.float32:
+            return F.linear(x, w, self.bias)
+        return F.linear(x, w) + self.bias.to(x.dtype)
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -168,6 +175,9 @@ class NormLayer(nn.Module):
     def __init__(self, channels: int, norm_type: str = 'gn'):
         super().__init__()
         nt = norm_type.lower()
+        if nt in ('in', 'bn'):
+            raise NotImplementedError(
+                f'norm_type {norm_type!r} is not ported yet (ROADMAP A12)')
         if nt == 'gn':
             self.norm = GroupNorm(32, channels, eps=1e-6)
         elif nt == 'none':
@@ -250,18 +260,23 @@ class ResBlock(nn.Module):
             ActLayer(out_channel, act_type),
             conv(out_channel, out_channel))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
+        """differentiable: a kernel=True block takes the conv3 kernel's
+        plain version (the same function, under autograd) instead of the
+        kernel, which has no backward."""
         if not self.kernel:
             return self.conv(x) + x
+        conv = conv3_plain if differentiable else conv3
         x = x.contiguous(memory_format=torch.channels_last)
         norm1, conv1 = self.conv[0].norm, self.conv[2]
         norm2, conv2 = self.conv[3].norm, self.conv[5]
         a, b = norm1.affine(x)
-        res = conv3(x, conv1.weight, conv1.bias, scale=a, shift=b,
-                    pre_act='silu')
+        res = conv(x, conv1.weight, conv1.bias, scale=a, shift=b,
+                   pre_act='silu')
         a, b = norm2.affine(res)
-        res = conv3(res, conv2.weight, conv2.bias, scale=a, shift=b,
-                    pre_act='silu')
+        res = conv(res, conv2.weight, conv2.bias, scale=a, shift=b,
+                   pre_act='silu')
         return res + x
 
 

@@ -1,17 +1,21 @@
 """Codebook vector quantization (counterpart of femasr_tpu/ops/quantize.py).
 
 The nearest-code search runs through the VQ-argmin kernel in f32 whatever
-the model dtype (the JAX package's `index_f32` / Pallas behaviour). The
-serving-side codebook loss is computed in f32. Tensors are NCHW. The
+the model dtype (the JAX package's `index_f32` / Pallas behaviour), on the
+detached tokens and codebook: the search carries no gradient, so the
+kernel serves training too. All loss algebra is f32. Tensors are NCHW. The
 counterpart of `nearest_code_indices` is `kernels.vq_argmin.vq_argmin`
-itself (always the f32 search). The
-LQ-stage supervised loss (gt indices, gram loss) belongs to training and
-is not ported yet.
+itself (always the f32 search).
+
+Training side: the HQ-stage commitment loss q_latent + beta * e_latent, the
+LQ-stage loss against the frozen HQ prior's codes (beta * MSE(z, z_q_gt) +
+gram_loss(z, z_q_gt)), the straight-through output z + (z_q - z).detach(),
+and `codebook_perplexity` (code-usage telemetry).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,38 +23,73 @@ from torch import nn
 from ..kernels.vq_argmin import vq_argmin
 
 
+def gram_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean squared difference of the (B, C, C) Gram matrices of two
+    (B, C, H, W) maps, each normalised by H * W (femasr_arch.py:40-48)."""
+    b, c, h, w = x.shape
+    xf = x.float().reshape(b, c, h * w)
+    yf = y.float().reshape(b, c, h * w)
+    gmx = xf @ xf.transpose(1, 2) / (h * w)
+    gmy = yf @ yf.transpose(1, 2) / (h * w)
+    return (gmx - gmy).square().mean()
+
+
 def vector_quantize(z: torch.Tensor, codebook: torch.Tensor,
-                    beta: float = 0.25
+                    gt_indices: Optional[torch.Tensor] = None,
+                    beta: float = 0.25, lq_stage: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quantize (B, C, H, W) z to its nearest codebook entries.
 
+    gt_indices: (B, H, W) or (B, 1, H, W) codes of the frozen HQ prior;
+    with lq_stage they replace the commitment loss by the LQ-stage loss.
     Returns (z_q, codebook_loss, indices): z_q in z's dtype (straight-
-    through form z + (z_q - z)), the f32 scalar loss q_latent + beta *
-    e_latent, and (B, H, W) int32 indices.
+    through form z + (z_q - z).detach()), the f32 scalar loss, and
+    (B, H, W) int32 indices.
     """
     b, c, h, w = z.shape
     zf = z.float()
+    cb = codebook.float()
     z_flat = z.detach().permute(0, 2, 3, 1).reshape(-1, c)
-    indices = vq_argmin(z_flat, codebook).long()
-    z_q = codebook.float()[indices].view(b, h, w, c).permute(0, 3, 1, 2)
-    e_latent = (z_q.detach() - zf).square().mean()
-    q_latent = (z_q - zf.detach()).square().mean()
-    loss = q_latent + beta * e_latent
+    indices = vq_argmin(z_flat, codebook.detach()).long()
+    z_q = cb[indices].view(b, h, w, c).permute(0, 3, 1, 2)
+    if lq_stage and gt_indices is not None:
+        gt = gt_indices.reshape(-1).long()
+        z_q_gt = cb[gt].view(b, h, w, c).permute(0, 3, 1, 2).detach()
+        loss = (beta * (z_q_gt - zf).square().mean()
+                + gram_loss(zf, z_q_gt))
+    else:
+        e_latent = (z_q.detach() - zf).square().mean()
+        q_latent = (z_q - zf.detach()).square().mean()
+        loss = q_latent + beta * e_latent
     z_q = z + (z_q.to(z.dtype) - z).detach()
     return z_q, loss, indices.to(torch.int32).view(b, h, w)
+
+
+def codebook_perplexity(indices: torch.Tensor, n_e: int) -> torch.Tensor:
+    """exp(entropy) of the code-usage distribution of `indices` (f32)."""
+    counts = torch.bincount(indices.reshape(-1).long(),
+                            minlength=n_e).float()
+    probs = counts / counts.sum().clamp_min(1.0)
+    plogp = torch.where(probs > 0, probs * probs.clamp_min(1e-30).log(),
+                        torch.zeros_like(probs))
+    return torch.exp(-plogp.sum())
 
 
 class VectorQuantizer(nn.Module):
     """Owns the (n_e, e_dim) codebook as `embedding.weight`."""
 
-    def __init__(self, n_e: int, e_dim: int, beta: float = 0.25):
+    def __init__(self, n_e: int, e_dim: int, beta: float = 0.25,
+                 lq_stage: bool = False):
         super().__init__()
         self.e_dim = e_dim
         self.beta = beta
+        self.lq_stage = lq_stage
         self.embedding = nn.Embedding(n_e, e_dim)
 
-    def forward(self, z: torch.Tensor):
-        return vector_quantize(z, self.embedding.weight, self.beta)
+    def forward(self, z: torch.Tensor,
+                gt_indices: Optional[torch.Tensor] = None):
+        return vector_quantize(z, self.embedding.weight, gt_indices,
+                               self.beta, self.lq_stage)
 
     def get_codebook_entry(self, indices: torch.Tensor,
                            dtype: torch.dtype = torch.float32

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.window_attention import window_attention
+from ..kernels.window_attention import (window_attention,
+                                        window_attention_plain)
 from .layers import Conv2d, Linear, LinearInt8, quantize_rows, silu_gelu
 
 
@@ -144,9 +145,11 @@ class WindowAttention(nn.Module):
         self.qkv = lin(dim, dim * 3)
         self.proj = lin(dim, dim)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (B_, N, C) windows; mask: (nW, N, N) float32 or None."""
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                differentiable: bool = False) -> torch.Tensor:
+        """x: (B_, N, C) windows; mask: (nW, N, N) float32 or None.
+        differentiable: the attention core takes the kernel's plain version
+        (the same function, under autograd)."""
         b_, n, c = x.shape
         nh = self.num_heads
         qkv = self.qkv(x)
@@ -157,7 +160,8 @@ class WindowAttention(nn.Module):
         bias = (self.relative_position_bias_table[
             self.relative_position_index.view(-1)]
             .view(n, n, nh).permute(2, 0, 1).float().contiguous())
-        out = window_attention(q, k, v, bias, mask, num_heads=nh)
+        attn = window_attention_plain if differentiable else window_attention
+        out = attn(q, k, v, bias, mask, num_heads=nh)
         return self.proj(out)
 
 
@@ -182,7 +186,8 @@ class SwinTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, 4 * dim, int8=int8_linears, chain=int8_mlp)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
         """x: (B, H, W, C)."""
         _, h, w, _ = x.shape
         ws, ss = self.window_size, self.shift_size
@@ -190,7 +195,8 @@ class SwinTransformerBlock(nn.Module):
         if ss > 0:
             y = torch.roll(y, (-ss, -ss), dims=(1, 2))
         mask = _device_mask(h, w, ws, ss, x.device) if ss > 0 else None
-        y = self.attn(window_partition(y, ws), mask=mask)
+        y = self.attn(window_partition(y, ws), mask=mask,
+                      differentiable=differentiable)
         y = window_reverse(y, ws, h, w)
         if ss > 0:
             y = torch.roll(y, (ss, ss), dims=(1, 2))
@@ -212,9 +218,10 @@ class BasicLayer(nn.Module):
                                  int8_linears, int8_mlp)
             for i in range(depth)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, differentiable)
         return x
 
 
@@ -231,8 +238,10 @@ class RSTB(nn.Module):
                                          int8_linears, int8_mlp)
         self.conv = Conv2d(dim, dim, 3, 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.residual_group(x.permute(0, 2, 3, 1).contiguous())
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
+        y = self.residual_group(x.permute(0, 2, 3, 1).contiguous(),
+                                differentiable)
         return self.conv(y.permute(0, 3, 1, 2).contiguous()) + x
 
 
@@ -249,7 +258,8 @@ class SwinLayers(nn.Module):
                  window_size, int8_linears, int8_mlp)
             for _ in range(4)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
         for m in self.swin_blks:
-            x = m(x)
+            x = m(x, differentiable)
         return x

@@ -1,0 +1,94 @@
+"""Shared trainer facilities: EMA, checkpoint and training-state I/O
+(counterpart of femasr_tpu/train/base_model.py).
+
+Networks are saved as reference-format .pth files in the reference's torch
+keys: models/<label>_<iter>.pth holding {'params': state dict} (plus
+'params_ema' for the generator's EMA), which the reference, the JAX
+package's converters and this package's loaders all read. The training
+state (optimizers, step, EMA, parameters, discriminator spectral vectors,
+RNG states) goes to training_states/<iter>.state.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from os import path as osp
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+from ..utils.logger import get_root_logger
+
+
+class BaseModel:
+    """Option handling, loss-log bookkeeping, checkpoint I/O."""
+
+    def __init__(self, opt: dict):
+        self.opt = opt
+        self.is_train = opt.get('is_train', False)
+        self.log_dict: Dict[str, float] = {}
+
+    @staticmethod
+    @torch.no_grad()
+    def ema_update(ema: Mapping[str, torch.Tensor],
+                   params: Mapping[str, torch.Tensor],
+                   decay: float = 0.999) -> None:
+        """In place: ema = ema * decay + params * (1 - decay), per tensor."""
+        for name, e in ema.items():
+            e.mul_(decay).add_(params[name].detach().to(e.dtype),
+                               alpha=1 - decay)
+
+    @staticmethod
+    def _save_with_retry(obj: Any, path: str, retries: int = 3) -> None:
+        """torch.save, retried three times a second apart before giving up
+        with a warning (flaky shared file systems)."""
+        os.makedirs(osp.dirname(path), exist_ok=True)
+        for attempt in range(retries):
+            try:
+                torch.save(obj, path)
+                return
+            except OSError as e:
+                get_root_logger().warning(
+                    f'Save model error: {e}, remaining retry times: '
+                    f'{retries - attempt - 1}')
+                time.sleep(1)
+        get_root_logger().warning(f'Still cannot save {path}. Just ignore it.')
+
+    def save_network(self, state_dict: Mapping[str, torch.Tensor],
+                     net_label: str, current_iter,
+                     param_key: str = 'params',
+                     extra_keys: Optional[Dict[str, Any]] = None) -> str:
+        """models/<label>_<iter>.pth ('latest' for -1) holding
+        {param_key: state_dict, **extra_keys}, on the CPU."""
+        current_iter = 'latest' if current_iter == -1 else current_iter
+        fname = (f'{net_label}_{current_iter}.pth' if current_iter != ''
+                 else f'{net_label}.pth')
+        path = osp.join(self.opt['path']['models'], fname)
+        tree = {param_key: _cpu(state_dict)}
+        for k, v in (extra_keys or {}).items():
+            tree[k] = _cpu(v)
+        self._save_with_retry(tree, path)
+        return path
+
+    def save_training_state(self, state: Dict[str, Any], epoch: int,
+                            current_iter: int) -> None:
+        """training_states/<iter>.state (nothing for iter -1)."""
+        if current_iter == -1:
+            return
+        path = osp.join(self.opt['path']['training_states'],
+                        f'{current_iter}.state')
+        self._save_with_retry({'epoch': epoch, 'iter': current_iter,
+                               'state': state}, path)
+
+    @staticmethod
+    def resume_training_state(path: str) -> Dict[str, Any]:
+        return torch.load(path, map_location='cpu', weights_only=True)
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, Mapping):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree

@@ -1,0 +1,423 @@
+"""FeMaSR GAN trainer (counterpart of femasr_tpu/train/femasr_model.py).
+
+One iteration, in the JAX step's order and with its gates:
+  1. LQ stage: the frozen HQ prior reconstructs the GT batch under
+     torch.no_grad() and gives the GT code indices (its conv3 tail and its
+     codebook search run as kernels).
+  2. HQ stage with the semantic loss: frozen VGG19 relu4_4 features of GT.
+  3. Generator step: codebook, semantic, pixel, perceptual and (gated by
+     `current_iter > net_d_init_iters`) GAN losses through the
+     discriminator without a spectral update and without discriminator
+     gradients; the forward is differentiable (model.forward(...,
+     differentiable=True)), so the conv3 tail and the attention take the
+     kernels' plain versions, and only the trainee's codebook search, on
+     detached tokens, is a kernel. With grad_accum_chunks = K the batch
+     runs in K equal chunks whose gradients average. One optimizer update
+     (frozen modules, by frozen_module_keywords in the LQ stage, are not
+     handed to the optimizer).
+  4. Discriminator step (unless fixed_disc): the hinge loss on GT with one
+     power iteration of every spectral-norm conv, then on the generator's
+     output with one more; the two gradients add and one update follows.
+     Gated off, neither the parameters nor the spectral vectors change.
+  5. The EMA of the generator's parameters (ema_decay > 0).
+The learning rate of update k is the schedule at step k.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import OrderedDict
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+from ..losses import LPIPSLoss, PerceptualLoss, build_loss
+from ..losses.lpips import convert_lpips_checkpoint
+from ..models.convert import load_torch_checkpoint, merge_state_dict
+from ..models.discriminator_arch import UNetDiscriminatorSN, init_discriminator
+from ..models.femasr_arch import FeMaSRNet, init_weights
+from ..models.inference import resolve_device
+from ..models.vgg_arch import (VGGFeatureExtractor, convert_vgg_checkpoint,
+                               vgg_truncated_state)
+from ..ops.quantize import codebook_perplexity
+from ..utils.logger import get_root_logger
+from .base_model import BaseModel
+from .lr_scheduler import build_schedule
+
+# network_g option keys that configure the trainer or the search, not
+# FeMaSRNet (the port's search is always the f32 kernel)
+_TRAINER_KEYS = ('type', 'frozen_module_keywords', 'vq_backend',
+                 'vq_index_f32', 'dtype', 'use_checkpoint')
+
+
+def build_generator(opt: Mapping) -> FeMaSRNet:
+    if opt.get('type', 'FeMaSRNet') != 'FeMaSRNet':
+        raise NotImplementedError(f'network {opt["type"]!r} is not ported')
+    return FeMaSRNet(**{k: v for k, v in opt.items()
+                        if k not in _TRAINER_KEYS})
+
+
+def build_discriminator(opt: Mapping) -> UNetDiscriminatorSN:
+    if opt.get('type', 'UNetDiscriminatorSN') != 'UNetDiscriminatorSN':
+        raise NotImplementedError(f'network {opt["type"]!r} is not ported')
+    return UNetDiscriminatorSN(**{k: v for k, v in opt.items()
+                                  if k not in ('type', 'dtype')})
+
+
+def frozen_names(names, keywords) -> set:
+    """Parameter names holding any of the keywords (path substrings)."""
+    return {n for n in names if any(kw in n for kw in keywords or ())}
+
+
+def optimizer_from_opt(optim_opt: Mapping, params) -> torch.optim.Optimizer:
+    """torch.optim optimizer of a YAML `optim_*` dict: Adam (coupled L2
+    weight decay, as torch.optim.Adam and the JAX package's
+    add_decayed_weights + adam), AdamW (decoupled), SGD. The learning rate
+    is the schedule's, set before each update."""
+    opt = dict(optim_opt)
+    otype = opt.pop('type', 'Adam')
+    lr = float(opt.get('lr', 1e-4))
+    betas = tuple(opt.get('betas', (0.9, 0.999)))
+    wd = float(opt.get('weight_decay', 0) or 0)
+    if otype == 'Adam':
+        return torch.optim.Adam(params, lr=lr, betas=betas, weight_decay=wd)
+    if otype == 'AdamW':
+        return torch.optim.AdamW(params, lr=lr, betas=betas, weight_decay=wd)
+    if otype == 'SGD':
+        return torch.optim.SGD(params, lr=lr,
+                               momentum=opt.get('momentum', 0) or 0,
+                               nesterov=bool(opt.get('nesterov', False)))
+    raise ValueError(f'unsupported optimizer type {otype!r} '
+                     '(supported: Adam, AdamW, SGD)')
+
+
+def _seed_init(seed: int):
+    return lambda m: init_weights(m, torch.Generator().manual_seed(seed))
+
+
+class FeMaSRModel(BaseModel):
+    """The trainer: options in, `feed_data` + `optimize_parameters` per
+    iteration, `save` / `resume_training` for checkpoints."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt)
+        logger = get_root_logger()
+        self.device = resolve_device(opt.get('device', 'cuda'))
+        self.seed = int(opt.get('manual_seed', 0) or 0)
+        nopt = opt['network_g']
+        self.net_g = build_generator(nopt)
+        init_weights(self.net_g, torch.Generator().manual_seed(self.seed))
+        self.LQ_stage = self.net_g.LQ_stage
+        self.scale = self.net_g.scale_factor
+        self.n_e = self.net_g.codebook_params[0][1]
+
+        # the frozen HQ prior of the LQ stage; the LQ net starts from it
+        self.net_hq = None
+        if self.LQ_stage:
+            load_path = opt['path'].get('pretrain_network_hq')
+            if self.is_train and load_path is None:
+                raise ValueError('Need to specify hq prior model path in LQ '
+                                 'stage (path.pretrain_network_hq)')
+            if load_path is not None:
+                hq_sd = load_torch_checkpoint(load_path)
+                self.net_hq = build_generator(dict(nopt, LQ_stage=False))
+                merge_state_dict(self.net_hq, hq_sd, _seed_init(self.seed))
+                self.net_hq.requires_grad_(False).eval()
+                merge_state_dict(self.net_g, hq_sd, _seed_init(self.seed))
+        load_path = opt['path'].get('pretrain_network_g')
+        if load_path is not None:
+            logger.info(f'Loading net_g from {load_path}')
+            merge_state_dict(self.net_g, load_torch_checkpoint(load_path),
+                             _seed_init(self.seed))
+        self.net_g.to(self.device)
+        if self.net_hq is not None:
+            self.net_hq.to(self.device)
+        self.lpips_sd = self._load_lpips()
+        self.vgg_sd = self._load_vgg()
+        if self.is_train:
+            self.init_training_settings()
+
+    # -- setup -----------------------------------------------------------
+
+    def _load_lpips(self) -> Optional[Dict[str, torch.Tensor]]:
+        path = self.opt['path'].get('pretrain_lpips')
+        if not path or not os.path.exists(path):
+            return None
+        return convert_lpips_checkpoint(load_torch_checkpoint(path, None))
+
+    def _load_vgg(self) -> Optional[Dict[str, torch.Tensor]]:
+        path = self.opt['path'].get('pretrain_vgg')
+        if not path or not os.path.exists(path):
+            return None
+        return convert_vgg_checkpoint(load_torch_checkpoint(path, None),
+                                      'vgg19')
+
+    def init_training_settings(self) -> None:
+        logger = get_root_logger()
+        opt, train_opt = self.opt, self.opt['train']
+
+        self.net_d = build_discriminator(opt['network_d'])
+        init_discriminator(self.net_d, torch.Generator().manual_seed(1))
+        load_path = opt['path'].get('pretrain_network_d')
+        if load_path is not None:
+            logger.info(f'Loading net_d from {load_path}')
+            merge_state_dict(self.net_d, load_torch_checkpoint(load_path),
+                             lambda m: init_discriminator(m))
+        self.net_d.to(self.device)
+
+        self.cri_pix = (build_loss(train_opt['pixel_opt']).to(self.device)
+                        if train_opt.get('pixel_opt') else None)
+        self.cri_perceptual = None
+        if train_opt.get('perceptual_opt'):
+            cri = build_loss(train_opt['perceptual_opt'])
+            if isinstance(cri, LPIPSLoss) and self.lpips_sd is None:
+                logger.warning('LPIPS weights unavailable (set '
+                               'path.pretrain_lpips); perceptual loss '
+                               'DISABLED for this run.')
+            elif isinstance(cri, PerceptualLoss) and self.vgg_sd is None:
+                logger.warning('VGG weights unavailable (set '
+                               'path.pretrain_vgg); perceptual loss '
+                               'DISABLED for this run.')
+            else:
+                sd = (self.lpips_sd if isinstance(cri, LPIPSLoss)
+                      else self.vgg_sd)
+                self.cri_perceptual = cri.bind_params(sd).to(self.device)
+        self.cri_gan = build_loss(train_opt['gan_opt']).to(self.device)
+        self.use_dis = train_opt['gan_opt']['loss_weight'] != 0
+        self.fixed_disc = train_opt.get('fixed_disc', False)
+        self.grad_accum_chunks = max(int(train_opt.get('grad_accum_chunks',
+                                                       1) or 1), 1)
+        # read but unused, as in the reference and the JAX package
+        self.net_d_iters = train_opt.get('net_d_iters', 1)
+        self.net_d_init_iters = int(train_opt.get('net_d_init_iters', 0))
+        self.codebook_w = (train_opt.get('codebook_opt') or {}).get(
+            'loss_weight', 0.0)
+        self.semantic_w = (train_opt.get('semantic_opt') or {}).get(
+            'loss_weight', 0.0)
+        self.use_semantic = (self.net_g.use_semantic_loss
+                             and self.vgg_sd is not None
+                             and self.semantic_w > 0)
+        if self.net_g.use_semantic_loss and self.vgg_sd is None:
+            logger.warning('use_semantic_loss requested but no VGG weights; '
+                           'semantic loss DISABLED for this run.')
+        self.vgg = None
+        if self.use_semantic:
+            self.vgg = VGGFeatureExtractor(['relu4_4'], 'vgg19')
+            self.vgg.load_state_dict(vgg_truncated_state(self.vgg_sd,
+                                                         self.vgg))
+            self.vgg.requires_grad_(False).eval().to(self.device)
+
+        warmup = train_opt.get('warmup_iter', -1)
+        self.sched_g = build_schedule(train_opt.get('scheduler'),
+                                      train_opt['optim_g']['lr'], warmup)
+        self.sched_d = build_schedule(train_opt.get('scheduler'),
+                                      train_opt['optim_d']['lr'], warmup)
+        keywords = opt['network_g'].get('frozen_module_keywords')
+        names = [n for n, _ in self.net_g.named_parameters()]
+        frozen = (frozen_names(names, keywords) if self.LQ_stage and keywords
+                  else set())
+        if frozen:
+            logger.info(f'Froze {len(frozen)} param tensors by keywords '
+                        f'{keywords}')
+        self.net_g.requires_grad_(True)
+        for n, p in self.net_g.named_parameters():
+            p.requires_grad_(n not in frozen)
+        self.trainable_g = [p for n, p in self.net_g.named_parameters()
+                            if n not in frozen]
+        self.opt_g = optimizer_from_opt(train_opt['optim_g'],
+                                        self.trainable_g)
+        self.opt_d = optimizer_from_opt(train_opt['optim_d'],
+                                        list(self.net_d.parameters()))
+        self.ema_decay = float(train_opt.get('ema_decay', 0) or 0)
+        self.ema = ({n: p.detach().clone() for n, p in
+                     self.net_g.named_parameters()}
+                    if self.ema_decay > 0 else None)
+        self.step = 0
+        self.net_g.train()
+        self.net_d.train()
+
+    # -- one iteration ---------------------------------------------------
+
+    def feed_data(self, data: Mapping[str, Any]) -> None:
+        nb = self.device.type == 'cuda'
+        self.lq = (data['lq'].to(self.device, non_blocking=nb)
+                   if data.get('lq') is not None else None)
+        self.gt = data['gt'].to(self.device, non_blocking=nb)
+
+    @torch.no_grad()
+    def hq_prior(self, gt: torch.Tensor):
+        """The frozen prior's code indices of GT, per codebook scale."""
+        return self.net_hq(gt)[-1]
+
+    def chunks(self, batch: int) -> int:
+        """grad_accum_chunks, when it divides the batch (else 1)."""
+        k = self.grad_accum_chunks
+        return k if batch % k == 0 else 1
+
+    def gan_gate(self) -> bool:
+        """The GAN terms and the discriminator update start after
+        net_d_init_iters iterations (current_iter counts from 1)."""
+        return self.use_dis and self.step + 1 > self.net_d_init_iters
+
+    def g_losses(self, gen_in, gt, gt_indices=None, vgg_feat=None,
+                 gate: bool = True):
+        """(total, loss dict, f32 output, first-scale indices) of one
+        generator forward in training mode."""
+        out, l_codebook, l_semantic, idx_list = self.net_g(
+            gen_in, gt_indices=gt_indices, vgg_feat=vgg_feat, train=True,
+            differentiable=True)
+        out32 = out.float()
+        total = torch.zeros((), device=out.device)
+        ld = OrderedDict()
+        if self.codebook_w:
+            ld['l_codebook'] = l_codebook * self.codebook_w
+            total = total + ld['l_codebook']
+        if self.use_semantic and self.semantic_w:
+            ld['l_semantic'] = l_semantic * self.semantic_w
+            total = total + ld['l_semantic']
+        if self.cri_pix is not None:
+            ld['l_pix'] = self.cri_pix(out32, gt)
+            total = total + ld['l_pix']
+        if self.cri_perceptual is not None:
+            l_percep, l_style = self.cri_perceptual(out32, gt)
+            if l_percep is not None:
+                ld['l_percep'] = l_percep
+                total = total + l_percep
+            if l_style is not None:
+                ld['l_style'] = l_style
+                total = total + l_style
+        if self.use_dis:
+            if gate:
+                ld['l_g_gan'] = self.cri_gan(self.net_d(out), True,
+                                             is_disc=False)
+                total = total + ld['l_g_gan']
+            else:
+                ld['l_g_gan'] = torch.zeros((), device=out.device)
+        return total, ld, out32, idx_list[0]
+
+    def g_backward(self, lq, gt):
+        """The generator's forward and backward over the chunks, gradients
+        left in .grad (averaged over the chunks). Returns (mean total, mean
+        loss dict, output, first-scale indices, prior indices)."""
+        n = self.chunks(gt.shape[0])
+        gt_indices = self.hq_prior(gt) if self.LQ_stage else None
+        vgg_feat = None
+        if self.use_semantic:
+            with torch.no_grad():
+                vgg_feat = self.vgg(gt)['relu4_4']
+        gen_in = lq if self.LQ_stage else gt
+        gate = self.gan_gate()
+        self.net_d.requires_grad_(False)
+        bs = gt.shape[0] // n
+        totals, lds, outs, idxs = [], [], [], []
+        for c in range(n):
+            sl = slice(c * bs, (c + 1) * bs)
+            total, ld, out, idx = self.g_losses(
+                gen_in[sl], gt[sl],
+                None if gt_indices is None else [g[sl] for g in gt_indices],
+                None if vgg_feat is None else vgg_feat[sl], gate)
+            (total / n).backward()
+            totals.append(total.detach())
+            lds.append({k: v.detach() for k, v in ld.items()})
+            outs.append(out.detach())
+            idxs.append(idx)
+        self.net_d.requires_grad_(True)
+        mean_ld = OrderedDict((k, torch.stack([d[k] for d in lds]).mean())
+                              for k in lds[0])
+        return (torch.stack(totals).mean(), mean_ld, torch.cat(outs),
+                torch.cat(idxs), gt_indices)
+
+    def _d_phase(self, data: torch.Tensor, real: bool, n: int):
+        """Hinge loss of one side over n chunks, backward; the first chunk
+        runs the power iteration."""
+        bs = data.shape[0] // n
+        losses, preds = [], []
+        for c in range(n):
+            pred = self.net_d(data[c * bs:(c + 1) * bs], update=c == 0)
+            loss = self.cri_gan(pred, real, is_disc=True)
+            (loss / n).backward()
+            losses.append(loss.detach())
+            preds.append(pred.detach().float().mean())
+        return torch.stack(losses).mean(), torch.stack(preds).mean()
+
+    def _set_lr(self, optimizer, schedule) -> None:
+        lr = schedule(self.step)
+        for group in optimizer.param_groups:
+            group['lr'] = lr
+
+    def optimize_parameters(self, current_iter: Optional[int] = None) -> None:
+        gate = self.gan_gate()
+        self.opt_g.zero_grad(set_to_none=True)
+        total, loss_dict, output, idx, _ = self.g_backward(self.lq, self.gt)
+        loss_dict['codebook_perplexity'] = codebook_perplexity(idx, self.n_e)
+        self._set_lr(self.opt_g, self.sched_g)
+        self.opt_g.step()
+        loss_dict['l_g_total'] = total
+
+        if self.use_dis and not self.fixed_disc:
+            n = self.chunks(self.gt.shape[0])
+            spectral = None if gate else {
+                k: v.clone() for k, v in self.net_d.state_dict().items()
+                if k.endswith(('weight_u', 'weight_v'))}
+            self.opt_d.zero_grad(set_to_none=True)
+            l_real, p_real = self._d_phase(self.gt, True, n)
+            l_fake, p_fake = self._d_phase(output, False, n)
+            if gate:
+                self._set_lr(self.opt_d, self.sched_d)
+                self.opt_d.step()
+            else:       # the spectral vectors stay as they were
+                self.net_d.load_state_dict(spectral, strict=False)
+            self.opt_d.zero_grad(set_to_none=True)
+            loss_dict.update(l_d_real=l_real, l_d_fake=l_fake,
+                             out_d_real=p_real, out_d_fake=p_fake)
+        if self.ema is not None:
+            self.ema_update(self.ema, dict(self.net_g.named_parameters()),
+                            self.ema_decay)
+        self.step += 1
+        self.output = output
+        self._device_log = loss_dict
+
+    def get_current_log(self) -> Dict[str, float]:
+        log = getattr(self, '_device_log', None)
+        if log is not None:
+            self.log_dict = {k: float(v) for k, v in log.items()}
+            self._device_log = None
+        return self.log_dict
+
+    def get_current_learning_rate(self):
+        return [self.sched_g(self.step), self.sched_d(self.step)]
+
+    # -- checkpoints -------------------------------------------------------
+
+    def save(self, epoch: int, current_iter: int) -> None:
+        self.save_network(self.net_g.state_dict(), 'net_g', current_iter,
+                          extra_keys=({'params_ema': self.ema}
+                                      if self.ema is not None else None))
+        self.save_network(self.net_d.state_dict(), 'net_d', current_iter)
+        state = {'step': self.step,
+                 'params_g': self.net_g.state_dict(),
+                 'params_d': self.net_d.state_dict(),
+                 'opt_g': self.opt_g.state_dict(),
+                 'opt_d': self.opt_d.state_dict(),
+                 'rng_cpu': torch.get_rng_state()}
+        if self.ema is not None:
+            state['params_g_ema'] = self.ema
+        if self.device.type == 'cuda':
+            state['rng_cuda'] = torch.cuda.get_rng_state(self.device)
+        self.save_training_state(state, epoch, current_iter)
+
+    def resume_training(self, state_path: str) -> Dict[str, int]:
+        tree = self.resume_training_state(state_path)
+        state = tree['state']
+        self.net_g.load_state_dict(state['params_g'])
+        self.net_d.load_state_dict(state['params_d'])
+        self.opt_g.load_state_dict(state['opt_g'])
+        self.opt_d.load_state_dict(state['opt_d'])
+        self.step = int(state['step'])
+        if self.ema is not None and 'params_g_ema' in state:
+            for k, v in state['params_g_ema'].items():
+                self.ema[k].copy_(v)
+        torch.set_rng_state(state['rng_cpu'])
+        if 'rng_cuda' in state and self.device.type == 'cuda':
+            torch.cuda.set_rng_state(state['rng_cuda'], self.device)
+        return {'epoch': int(tree['epoch']), 'iter': int(tree['iter'])}

@@ -1,0 +1,139 @@
+"""The training loop (counterpart of femasr_tpu/train/pipeline.py).
+
+Runs `train.total_iter` iterations over the train DataLoader, logs every
+`logger.print_freq`, saves checkpoints and the training state every
+`logger.save_checkpoint_freq` (and the latest networks every
+`save_latest_freq`), and resumes from `path.resume_state` or, with
+--auto_resume, from the newest state of the experiment. A resumed run sees
+the batches the uninterrupted run would have seen: the loader restarts at
+the epoch and position of the resumed iteration.
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import math
+import time
+from os import path as osp
+from typing import Optional
+
+from ..data import build_dataset, build_train_loader
+from ..models.inference import resolve_device
+from ..utils.logger import (AvgTimer, MessageLogger, get_env_info,
+                            get_root_logger, init_tb_logger)
+from ..utils.misc import get_time_str, make_exp_dirs, scandir
+from ..utils.options import copy_opt_file, dict2str, parse_options
+from .femasr_model import FeMaSRModel
+
+
+def load_resume_state(opt: dict) -> Optional[str]:
+    """The state to resume from: the newest training_states/*.state of the
+    experiment with auto_resume, else path.resume_state."""
+    if opt['auto_resume']:
+        state_dir = opt['path']['training_states']
+        if osp.isdir(state_dir):
+            states = [int(v.split('.state')[0]) for v in
+                      scandir(state_dir, suffix='.state')]
+            if states:
+                opt['path']['resume_state'] = osp.join(
+                    state_dir, f'{max(states)}.state')
+    return opt['path'].get('resume_state')
+
+
+def init_tb(opt: dict, logger):
+    if not opt['logger'].get('use_tb_logger') or 'debug' in opt['name']:
+        return None
+    try:
+        return init_tb_logger(osp.join(opt['root_path'], 'tb_logger',
+                                       opt['name']))
+    except ImportError as e:
+        logger.warning(f'tensorboard unavailable: {e}')
+        return None
+
+
+def crossed(freq, lo: int, hi: int) -> bool:
+    """True iff a multiple of freq lies in (lo, hi]."""
+    freq = int(float(freq))
+    return freq > 0 and hi // freq > lo // freq
+
+
+def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
+                   ) -> FeMaSRModel:
+    opt, args = parse_options(root_path, is_train=True, argv=argv, opt=opt)
+    resolve_device(opt['device'])       # no card: stop before any file
+    resume_state_path = load_resume_state(opt)
+    if resume_state_path is None:
+        make_exp_dirs(opt)
+    copy_opt_file(args.opt, opt, opt['path']['experiments_root'])
+    logger = get_root_logger(log_level=logging.INFO, log_file=osp.join(
+        opt['path']['log'], f"train_{opt['name']}_{get_time_str()}.log"))
+    logger.info(get_env_info())
+    logger.info(dict2str(opt))
+    tb_logger = init_tb(opt, logger)
+
+    dataset_opt = opt['datasets']['train']
+    model = FeMaSRModel(opt)
+    train_set = build_dataset(dataset_opt)
+    loader, sampler = build_train_loader(
+        train_set, dataset_opt, opt['manual_seed'],
+        pin_memory=model.device.type == 'cuda')
+    total_iters = int(float(opt['train']['total_iter']))
+    per_epoch = len(train_set) * dataset_opt.get('dataset_enlarge_ratio', 1) \
+        // dataset_opt['batch_size_per_gpu']
+    if per_epoch == 0:
+        raise ValueError('the train set holds fewer images than one batch')
+    logger.info(f'Training statistics:\n\tNumber of train images: '
+                f'{len(train_set)}\n\tBatch size: '
+                f"{dataset_opt['batch_size_per_gpu']}\n\tIters per epoch: "
+                f'{per_epoch}\n\tTotal epochs: '
+                f'{math.ceil(total_iters / per_epoch)}; iters: {total_iters}.')
+
+    current_iter = 0
+    if resume_state_path:
+        current_iter = model.resume_training(resume_state_path)['iter']
+        logger.info(f'Resuming training from iter: {current_iter}.')
+    epoch, skip = divmod(current_iter, per_epoch)
+    msg_logger = MessageLogger(opt, current_iter, tb_logger)
+    data_timer, iter_timer = AvgTimer(), AvgTimer()
+    start_time = time.time()
+    lg = opt['logger']
+    while current_iter < total_iters:
+        sampler.start(epoch, skip * dataset_opt['batch_size_per_gpu'])
+        skip = 0
+        for train_data in loader:
+            data_timer.record()
+            prev_iter, current_iter = current_iter, current_iter + 1
+            model.feed_data(train_data)
+            model.optimize_parameters(current_iter)
+            iter_timer.record()
+            if prev_iter == 0:
+                msg_logger.reset_start_time()
+            if crossed(lg['print_freq'], prev_iter, current_iter):
+                log_vars = {'epoch': epoch, 'iter': current_iter,
+                            'lrs': model.get_current_learning_rate(),
+                            'time': iter_timer.get_avg_time(),
+                            'data_time': data_timer.get_avg_time()}
+                log_vars.update(model.get_current_log())
+                msg_logger(log_vars)
+            if crossed(lg.get('save_checkpoint_freq', 0), prev_iter,
+                       current_iter):
+                logger.info('Saving models and training states.')
+                model.save(epoch, current_iter)
+            if crossed(lg.get('save_latest_freq', 0), prev_iter,
+                       current_iter):
+                logger.info('Saving latest models.')
+                model.save(epoch, -1)
+            data_timer.start()
+            iter_timer.start()
+            if current_iter >= total_iters:
+                break
+        epoch += 1
+
+    consumed = datetime.timedelta(seconds=int(time.time() - start_time))
+    logger.info(f'End of training. Time consumed: {consumed}')
+    logger.info('Save the latest model.')
+    model.save(epoch=-1, current_iter=-1)
+    if tb_logger is not None:
+        tb_logger.close()
+    return model

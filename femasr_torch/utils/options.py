@@ -1,0 +1,217 @@
+"""Training options: the YAML (or JSON) schema and CLI of the JAX package
+(counterpart of femasr_tpu/utils/options.py), for one device.
+
+`parse_options` reads the file (`!!float` tags and anchors as PyYAML reads
+them; a `.json` file needs no PyYAML) or takes a ready dict, applies
+`--force_yml` overrides, refuses what the port does not carry (see
+`check_port_options`), and fills in the experiment paths. The device is
+`device` in the options: CUDA by default, the CPU only when asked.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import random
+import sys
+from os import path as osp
+from typing import Any, Optional
+
+# network_g keys of the JAX FeMaSRNet that the port builds; vq_backend and
+# vq_index_f32 are accepted because the port's search is always the f32
+# kernel (the Pallas backend with index_f32)
+NETWORK_G_KEYS = {'type', 'codebook_params', 'in_channel', 'gt_resolution',
+                  'LQ_stage', 'norm_type', 'act_type', 'use_quantize',
+                  'scale_factor', 'use_semantic_loss',
+                  'frozen_module_keywords', 'vq_backend', 'vq_index_f32',
+                  'dtype', 'use_checkpoint'}
+NETWORK_D_KEYS = {'type', 'num_in_ch', 'num_feat', 'skip_connection', 'dtype'}
+# TPU program knobs of the JAX package: the port keeps no such formulation
+TPU_KNOBS = {('train', 'chain_steps'): 'K G+D steps per XLA dispatch',
+             ('train', 'flat_optimizer'): 'one raveled Adam vector',
+             ('network_g', 'attn_pack'): 'window-packed attention einsums',
+             ('logger', 'profile_start_iter'): 'a jax.profiler window'}
+
+
+class OptionError(ValueError):
+    """An option the port does not carry, with what to do about it."""
+
+
+def yaml_load(f: str) -> Any:
+    """YAML from a file path or a literal YAML string."""
+    import yaml
+    if os.path.isfile(f):
+        with open(f) as fh:
+            return yaml.safe_load(fh)
+    return yaml.safe_load(f)
+
+
+def load_options(path: str) -> dict:
+    """A `.json` options file, or a YAML one."""
+    if path.endswith('.json'):
+        with open(path) as f:
+            return json.load(f)
+    return yaml_load(path)
+
+
+def dict2str(opt: dict, indent_level: int = 1) -> str:
+    msg = '\n'
+    for k, v in opt.items():
+        pad = ' ' * (indent_level * 2)
+        if isinstance(v, dict):
+            msg += pad + k + ':[' + dict2str(v, indent_level + 1) + pad + ']\n'
+        else:
+            msg += pad + k + ': ' + str(v) + '\n'
+    return msg
+
+
+def _postprocess_yml_value(value: str) -> Any:
+    if value == '~' or value.lower() == 'none':
+        return None
+    if value.lower() in ('true', 'false'):
+        return value.lower() == 'true'
+    if value.startswith('['):
+        return json.loads(value)
+    if value.isdigit():
+        return int(value)
+    try:
+        return float(value)
+    except ValueError:
+        return value
+
+
+def apply_force_yml(opt: dict, force_yml) -> None:
+    """`key:sub=val` overrides."""
+    for entry in force_yml or ():
+        keys, value = entry.replace(' ', '').split('=', 1)
+        target = opt
+        key_path = keys.split(':')
+        for key in key_path[:-1]:
+            target = target[key]
+        target[key_path[-1]] = _postprocess_yml_value(value)
+
+
+def check_port_options(opt: dict) -> None:
+    """Refuse, with the reason, every option whose behaviour the port does
+    not have; none is silently ignored."""
+    def refuse(msg):
+        raise OptionError(msg)
+
+    if opt.get('model_type', 'FeMaSRModel') != 'FeMaSRModel':
+        refuse(f'model_type {opt["model_type"]!r} is not ported '
+               '(FeMaSRModel is)')
+
+    for (section, key), what in TPU_KNOBS.items():
+        if key in (opt.get(section) or {}):
+            refuse(f'{section}.{key} is a TPU program knob of the JAX '
+                   f'package ({what}); the port does not carry it: remove '
+                   'the key')
+    if int(opt.get('model_parallel', 1) or 1) > 1:
+        refuse('model_parallel > 1 (tensor parallelism) is not ported yet '
+               '(ROADMAP A11, multi-GPU)')
+    num_gpu = opt.get('num_gpu', 'auto')
+    if num_gpu != 'auto' and int(num_gpu) > 1:
+        refuse('num_gpu > 1 is not ported yet (ROADMAP A11, multi-GPU)')
+    for net, keys in (('network_g', NETWORK_G_KEYS),
+                      ('network_d', NETWORK_D_KEYS)):
+        nopt = opt.get(net) or {}
+        extra = sorted(set(nopt) - keys)
+        if extra:
+            refuse(f'{net}: {extra} are serving or TPU formulations of the '
+                   'JAX package that the port does not train')
+        if nopt.get('dtype') not in (None, 'float32'):
+            refuse(f'{net}.dtype: {nopt["dtype"]} training is not ported yet '
+                   '(a later slice); train in float32')
+        if nopt.get('use_checkpoint'):
+            refuse(f'{net}.use_checkpoint (rematerialization) is not ported '
+                   'yet (a later slice)')
+    for phase, dopt in (opt.get('datasets') or {}).items():
+        if (dopt or {}).get('on_device_degradation'):
+            refuse(f'datasets.{phase}.on_device_degradation needs the '
+                   'degradations, not ported yet (ROADMAP A9)')
+    val = opt.get('val')
+    if val is not None:
+        total = int(float(opt.get('train', {}).get('total_iter', 0)))
+        if (float(val.get('val_freq', float('inf'))) <= total
+                or 'val' in (opt.get('datasets') or {})):
+            refuse('validation (the val block) needs the metrics, not '
+                   'ported yet (ROADMAP A10): remove `val` and the val '
+                   'dataset, or set val_freq beyond total_iter without a '
+                   'val dataset')
+
+
+def parse_options(root_path: str, is_train: bool = True,
+                  argv: Optional[list] = None, opt: Optional[dict] = None):
+    """CLI + options file (or the dict `opt`) -> (opt, args)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument('-opt', type=str, required=opt is None,
+                        help='Path to the options YAML or JSON file.')
+    parser.add_argument('--launcher', choices=['none'], default='none',
+                        help='one process on one device (multi-GPU: '
+                             'ROADMAP A11)')
+    parser.add_argument('--auto_resume', action='store_true')
+    parser.add_argument('--debug', action='store_true')
+    parser.add_argument('--force_yml', nargs='+', action='append',
+                        default=None,
+                        help='Override options, e.g. train:ema_decay=0.999')
+    args = parser.parse_args(argv)
+    force = [e for group in args.force_yml or () for e in group]
+
+    opt = copy.deepcopy(opt) if opt is not None else load_options(args.opt)
+    apply_force_yml(opt, force)
+    check_port_options(opt)
+
+    if opt.get('manual_seed') is None:
+        opt['manual_seed'] = random.randint(1, 10000)
+    opt.update(auto_resume=args.auto_resume, is_train=is_train,
+               root_path=root_path)
+    opt.setdefault('device', 'cuda')
+    if args.debug and not opt['name'].startswith('debug'):
+        opt['name'] = 'debug_' + opt['name']
+
+    for phase, dataset in (opt.get('datasets') or {}).items():
+        dataset['phase'] = phase.split('_')[0]
+        if 'scale' in opt:
+            dataset['scale'] = opt['scale']
+        for key in ('dataroot_gt', 'dataroot_lq'):
+            if dataset.get(key) is not None:
+                dataset[key] = osp.expanduser(dataset[key])
+
+    opt['path'] = dict(opt.get('path') or {})
+    for key, val in opt['path'].items():
+        if val is not None and ('resume_state' in key or 'pretrain' in key):
+            opt['path'][key] = osp.expanduser(val)
+
+    if is_train:
+        root = osp.join(root_path, 'experiments', opt['name'])
+        opt['path'].update(experiments_root=root, log=root,
+                           models=osp.join(root, 'models'),
+                           training_states=osp.join(root, 'training_states'),
+                           visualization=osp.join(root, 'visualization'))
+        if 'debug' in opt['name']:
+            opt['logger']['print_freq'] = 1
+            opt['logger']['save_checkpoint_freq'] = 8
+    return opt, args
+
+
+def copy_opt_file(opt_file: Optional[str], opt: dict,
+                  experiments_root: str) -> None:
+    """Archive the options (the file, or the dict as JSON) and the command
+    line in the experiment directory."""
+    os.makedirs(experiments_root, exist_ok=True)
+    cmd = ' '.join(sys.argv)
+    if opt_file is None:
+        with open(osp.join(experiments_root, 'options.json'), 'w') as f:
+            json.dump({'cmd': cmd, 'options': opt}, f, indent=1,
+                      default=str)
+        return
+    with open(opt_file) as f:
+        text = f.read()
+    dst = osp.join(experiments_root, osp.basename(opt_file))
+    with open(dst, 'w') as f:
+        if opt_file.endswith('.json'):
+            f.write(text)
+        else:
+            f.write(f'# CMD:\n# {cmd}\n\n{text}')

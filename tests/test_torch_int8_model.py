@@ -236,7 +236,7 @@ def int8_pair():
                       codebook_params=SMALL, device='cpu', **INT8)
     got, stats = {}, {}
     sr.model.register_forward_hook(
-        lambda m, a, o: got.update(out=o[0].clone(), indices=o[2][0]))
+        lambda m, a, o: got.update(out=o[0].clone(), indices=o[-1][0]))
     inputs = torch_inputs(store, model_names(SMALL, LQ_stage=True,
                                              scale_factor=4))
     with force(sr.model, inputs, stats):
@@ -369,7 +369,7 @@ def test_int8_quality_gate_release_arch():
         m = FeMaSRNet(RELEASE, LQ_stage=True, scale_factor=4, **kw)
         m.load_state_dict(net.state_dict(), strict=True)
         with torch.no_grad():
-            out, _, idx = m(img)
+            out, _, _, idx = m(img)
         return out.clamp(0, 1).numpy(), idx[0].numpy()
 
     ref, idx_ref = run()

@@ -1,7 +1,7 @@
 """The port stands alone: no module of femasr_torch, and not chip_smoke.py,
 imports jax, flax or femasr_tpu; the package imports with jax blocked;
-and its entry points default to the card rather than falling back to the
-CPU."""
+and its entry points (serving, and the trainer's train_cli) default to the
+card rather than falling back to the CPU."""
 
 import ast
 import os
@@ -45,13 +45,19 @@ for name in ('jax', 'flax', 'femasr_tpu'):
     sys.modules[name] = None           # any import of these now fails
 import torch
 import femasr_torch, femasr_torch.kernels, femasr_torch.inference_cli
+import femasr_torch.train_cli
 from femasr_torch.models import SRInferencer
 from femasr_torch.models.inference import load_inferencer
+OPT = {'name': 'probe', 'model_type': 'FeMaSRModel', 'manual_seed': 0,
+       'network_g': {'type': 'FeMaSRNet', 'codebook_params': [[32, 16, 32]]},
+       'datasets': {'train': {'type': 'PairedImageDataset'}},
+       'path': {}, 'train': {'total_iter': 1}, 'logger': {'print_freq': 1}}
 if torch.cuda.is_available():
     print('cuda present')
 else:
     for fn in (lambda: SRInferencer(),
-               lambda: load_inferencer('missing.pth')):
+               lambda: load_inferencer('missing.pth'),
+               lambda: femasr_torch.train_cli.main([], opt=OPT)):
         try:
             fn()
         except RuntimeError as e:

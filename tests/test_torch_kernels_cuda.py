@@ -262,6 +262,7 @@ def test_linear_int8_chain_serves_weights_after_move_or_cast(gen):
     lin = LinearInt8(256, 1024).cuda()
     x = quantize_rows(torch.randn(100, 256, generator=gen).cuda())
 
+    @torch.no_grad()      # the layer's parameters require grad
     def check():
         for out_int8 in (False, True):
             out = lin(x, out_int8=out_int8)

@@ -45,7 +45,7 @@ def test_femasr_slice_matches_jax(lq, scale):
     net.load_state_dict(from_flax(params, SMALL, LQ_stage=lq,
                                   scale_factor=scale), strict=True)
     with torch.no_grad():
-        out, loss, idx = net(nchw(x))
+        out, loss, _, idx = net(nchw(x))
     out_j = np.asarray(out_j)
     assert out.shape == (1, 3, 32 * scale, 32 * scale)
     np.testing.assert_array_equal(idx[0].numpy(), np.asarray(idx_j[0]))
