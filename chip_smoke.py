@@ -40,7 +40,18 @@ Phases:
      their max); the HQ stage of options/train_FeMaSR_HQ_pretrain_stage.yml
      (semantic loss on) for 4 iterations; ms per iteration, images/s, peak
      memory and a profile per stage; B1's f32 route and B3 at the training
-     shapes against their plain versions;
+     shapes against their plain versions. Validation (A10), the release
+     configs' val blocks: the LQ run validates two seeded images at
+     DIV2K-valid size (LR 510x339 and 339x510, GT x4) at iterations 4 and
+     8 and after its loop (psnr, ssim, lpips with the seeded LPIPS; key
+     metric lpips), the HQ run one GT image after its loop; launches per
+     validation image B1 5, B2 24, B3 1 (HQ: B1 5, B3 1), no other
+     kernel; ms per image and peak memory; the trained model's validation
+     through the kernels against the plain versions (>= 99.9% equal
+     indices, output mean abs diff <= 1e-4, PSNR 0.01 dB, SSIM and LPIPS
+     1e-4); `python -m femasr_torch.test_cli` with options/test_FeMaSR.yml
+     on net_g_best gives the metrics of the validation that saved it
+     (1e-4 dB, 1e-5) and writes the images;
   6. print a JSON line of per-kernel numbers (and the training numbers),
      the card's name and power limit, and last `{"ok": true, "device":
      {...}}`.
@@ -727,37 +738,10 @@ def smooth_image(rng, h, w):
         np.uint8)
 
 
-@contextlib.contextmanager
 def plain_kernels():
     """Route the model's kernel calls to the plain versions (f32 reference)."""
-    from femasr_torch.kernels import (act_bf16, conv3, conv3_w8a8,
-                                      matmul_w8a8, matmul_w8a8_q, vq_argmin,
-                                      window_attention)
-    from femasr_torch.models import femasr_arch
-    from femasr_torch.ops import layers, quantize, swin
-
-    def mm_plain(*args, packed=None, **kwargs):  # needs no packed weight
-        return matmul_w8a8.matmul_w8a8_plain(*args, **kwargs)
-
-    def mmq_plain(*args, packed=None, **kwargs):
-        return matmul_w8a8_q.matmul_w8a8_q_plain(*args, **kwargs)
-    saved = [(layers, 'conv3', conv3.conv3_plain),
-             (femasr_arch, 'conv3', conv3.conv3_plain),
-             (swin, 'window_attention',
-              window_attention.window_attention_plain),
-             (quantize, 'vq_argmin', vq_argmin.vq_argmin_plain),
-             (layers, 'conv3_w8a8', conv3_w8a8.conv3_w8a8_plain),
-             (layers, 'matmul_w8a8', mm_plain),
-             (layers, 'matmul_w8a8_q', mmq_plain),
-             (layers, 'act_bf16', act_bf16.act_bf16_plain)]
-    old = [(m, name, getattr(m, name)) for m, name, _ in saved]
-    try:
-        for m, name, fn in saved:
-            setattr(m, name, fn)
-        yield
-    finally:
-        for m, name, fn in old:
-            setattr(m, name, fn)
+    from femasr_torch.kernels import plain_versions
+    return plain_versions()
 
 
 # lane -> (CLI flags, SRInferencer/FeMaSRNet kwargs, kernels it must run)
@@ -1158,6 +1142,21 @@ TRAIN_KERNEL_GROUPS = KERNEL_GROUPS[:7] + (
 G_STEP_LOSS_RTOL, G_STEP_GRAD_TOL = 1e-5, 1e-4
 TRAIN_LOSSES = ('l_codebook', 'l_pix', 'l_percep', 'l_g_gan', 'l_d_real',
                 'l_d_fake')
+# validation (A10): two seeded smooth images at DIV2K-valid size, LR
+# 510x339 (landscape) and 339x510 (portrait), GT at x4; the LQ run
+# validates every LQ_VAL_FREQ iterations and once after its loop, the HQ run
+# once after its loop on the landscape GT (the HQ config's val set is GT on
+# both sides)
+VAL_LR = ((339, 510), (510, 339))
+LQ_VAL_FREQ = 4
+# kernel launches per validation image: the serving forward in f32
+VAL_LAUNCHES = {'lq': {'conv3': 5, 'window_attention': 24, 'vq_argmin': 1},
+                'hq': {'conv3': 5, 'vq_argmin': 1}}
+# validation through the kernels vs the plain versions, and the offline
+# evaluation of net_g_best vs the in-training validation that saved it
+VAL_TOL = {'psnr': 0.01, 'ssim': 1e-4, 'lpips': 1e-4}
+EVAL_TOL = {'psnr': 1e-4, 'ssim': 1e-5, 'lpips': 1e-5}
+TEST_YML = 'options/test_FeMaSR.yml'
 
 
 def seed_convs(module, gen) -> None:
@@ -1214,24 +1213,37 @@ def train_inputs(work: str) -> dict:
 
 
 def release_options(yml: str, name: str, inputs: dict, iters: int,
-                    save_every: float) -> dict:
+                    save_every: float, val_root: str = None,
+                    val_freq: float = None) -> dict:
     """A release training YAML at its own widths, losses and optimizers,
-    on the seeded folder and weights, for `iters` iterations, without the
-    validation block (metrics are not ported)."""
-    import yaml
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           yml)) as f:
-        opt = yaml.safe_load(f)
-    opt.pop('val')
+    on the seeded folder and weights, for `iters` iterations. With
+    val_root, its own val block (metrics, key metric, save_img) validates
+    on that folder's lq/ and gt/ every `val_freq` iterations and after the
+    loop; without, the val block is dropped."""
+    opt = load_yml(yml)
+    val = opt.pop('val')
     data = opt['datasets']['train']
     data.update(type='PairedImageDataset', dataroot_gt=inputs['gt'],
                 dataroot_lq=inputs['lq'], num_worker_per_gpu=2)
     opt['datasets'] = {'train': data}
+    if val_root is not None:
+        opt['datasets']['val'] = {
+            'name': 'smoke_val', 'type': 'PairedImageDataset',
+            'dataroot_gt': os.path.join(val_root, 'gt'),
+            'dataroot_lq': os.path.join(val_root, 'lq')}
+        opt['val'] = dict(val, val_freq=val_freq)
     opt.update(name=name, device='cuda', manual_seed=0)
     opt['train']['total_iter'] = iters
     opt['logger'] = {'print_freq': 1, 'save_checkpoint_freq': save_every,
                      'save_latest_freq': 1e9, 'use_tb_logger': False}
     return opt
+
+
+def load_yml(yml: str) -> dict:
+    """An option file of the repository, as the port's CLIs read it."""
+    from femasr_torch.utils.options import load_options
+    return load_options(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), yml))
 
 
 def run_train_cli(work: str, opt: dict, *extra) -> tuple:
@@ -1272,6 +1284,288 @@ def check_losses(records: list, stage: str) -> None:
         vals = [v for k, v in r.items() if k.startswith('l_')]
         require(vals and np.isfinite(vals).all(),
                 f'{stage} iteration {r["iter"]}: non-finite losses {r}')
+
+
+def val_inputs(work: str) -> dict:
+    """The seeded validation folders: `lq` holds the VAL_LR pairs (LR and
+    its x4 GT, area downsampling in numpy), `hq` the landscape GT on both
+    sides."""
+    import cv2
+    roots = {k: os.path.join(work, f'val_{k}') for k in ('lq', 'hq')}
+    rng = np.random.default_rng(9)
+    for i, (h, w) in enumerate(VAL_LR):
+        gt = smooth_image(rng, 4 * h, 4 * w)
+        lq = gt.reshape(h, 4, w, 4, 3).mean(axis=(1, 3)).round().astype(
+            np.uint8)
+        subs = [('lq', 'gt', gt), ('lq', 'lq', lq)]
+        if i == 0:
+            subs += [('hq', 'gt', gt), ('hq', 'lq', gt)]
+        for root, sub, img in subs:
+            os.makedirs(os.path.join(roots[root], sub), exist_ok=True)
+            cv2.imwrite(os.path.join(roots[root], sub, f'{i:02d}.png'), img)
+    return roots
+
+
+@contextlib.contextmanager
+def probe_validation(dev, calls: list):
+    """Every FeMaSRModel.validation inside the block appends to `calls` its
+    iteration, image count, host ms (synchronized), kernel launches (the
+    counts set to 0 just before it and read just after, then added back),
+    the memory allocated before it and its peak max_memory_allocated (the
+    peak before it is kept as `peak_before`, so the stage's own peak is the
+    max of all), and its metrics and best records."""
+    from femasr_torch import kernels
+    from femasr_torch.train import FeMaSRModel
+    orig = FeMaSRModel.validation
+
+    def validation(self, loader, current_iter, tb_logger, save_img=False):
+        saved = kernels.launch_counts()
+        sync(dev)
+        peak_before = torch.cuda.max_memory_allocated(dev)
+        allocated = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        orig(self, loader, current_iter, tb_logger, save_img)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        for name, mod in kernels.MODULES.items():
+            mod.launches = saved[name] + counts[name]
+        name = loader.dataset.opt['name']
+        calls.append(dict(
+            iter=current_iter, dataset=name, images=len(loader), ms=ms,
+            ms_per_image=ms / len(loader), launches=counts,
+            allocated_before_bytes=allocated, peak_before=peak_before,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+            metrics=dict(self.metric_results),
+            best={m: dict(r) for m, r in
+                  self.best_metric_results.get(name, {}).items()}))
+    FeMaSRModel.validation = validation
+    try:
+        yield
+    finally:
+        FeMaSRModel.validation = orig
+
+
+def check_val_launches(calls: list, stage: str) -> dict:
+    """Each validation launched VAL_LAUNCHES[stage] per image, every other
+    kernel 0; returns the per-image counts."""
+    for c in calls:
+        want = {name: VAL_LAUNCHES[stage].get(name, 0) * c['images']
+                for name in c['launches']}
+        require(c['launches'] == want,
+                f'{stage} validation at {c["iter"]}: launches '
+                f'{c["launches"]}, expected {want}')
+    n = sum(c['images'] for c in calls)
+    per_image = {name: sum(c['launches'][name] for c in calls) / n
+                 for name in calls[0]['launches']}
+    print(f'[validate] {stage}: {len(calls)} validations of '
+          f'{calls[0]["images"]} image(s): kernel launches per image '
+          f'{per_image} (expected {VAL_LAUNCHES[stage]}, others 0)',
+          flush=True)
+    return per_image
+
+
+def stage_counts_and_peak(dev, calls: list) -> tuple:
+    """A training run's own kernel launches (the run's minus its
+    validations') and its peak max_memory_allocated over the whole run
+    (the validations reset the peak statistics; each kept the peak before
+    it)."""
+    from femasr_torch import kernels
+    counts = kernels.launch_counts()
+    for c in calls:
+        counts = {k: v - c['launches'][k] for k, v in counts.items()}
+    peak = max([torch.cuda.max_memory_allocated(dev)]
+               + [c[k] for c in calls for k in ('peak_before',
+                                                'peak_memory_bytes')])
+    return counts, peak
+
+
+def print_validations(calls: list, stage: str) -> None:
+    for c in calls:
+        print(f'[validate] {stage} at iteration {c["iter"]}: '
+              f'{c["ms_per_image"]:.1f} ms per image (host clock, '
+              f'synchronized, metrics and image writes included), peak '
+              f'max_memory_allocated {c["peak_memory_bytes"] / 2**30:.2f} '
+              f'GiB ({c["allocated_before_bytes"] / 2**30:.2f} GiB held '
+              f'before it); metrics '
+              + ', '.join(f'{k} {v:.6f}' for k, v in c['metrics'].items()),
+              flush=True)
+        vals = [v for v in c['metrics'].values()]
+        require(vals and np.isfinite(vals).all(),
+                f'{stage} validation at {c["iter"]}: metrics {c["metrics"]}')
+
+
+def val_records(calls: list) -> list:
+    """The probe's records for the JSON line (without the best records,
+    which may hold infinities)."""
+    return [{k: v for k, v in c.items() if k != 'best'} for c in calls]
+
+
+def last_saving_validation(calls: list, key: str) -> dict:
+    """The last validation that improved the key metric's record: the one
+    whose weights net_g_best holds."""
+    saving = [c for c in calls if c['best'][key]['iter'] == c['iter']]
+    require(saving, f'no validation improved {key}')
+    return saving[-1]
+
+
+def validation_kernels_vs_plain(model, loader) -> dict:
+    """The trained model's validation through the kernels, then with every
+    wrapper on its plain version: per image the codebook indices (>= 99.9%
+    equal) and the f32 output (mean abs diff <= 1e-4), and the metrics
+    (VAL_TOL). Best records and checkpoints are left as they were."""
+    from femasr_torch import kernels
+    from femasr_torch.models.inference import flip_pad
+    best = json.loads(json.dumps(model.best_metric_results))
+    model._save_best_models = lambda: None
+    sr = model._get_inferencer()
+    runs = {}
+    try:
+        with counting_off(*kernels.MODULES.values()):
+            for name, ctx in (('kernels', contextlib.nullcontext()),
+                              ('plain', plain_kernels())):
+                outs = []
+                with ctx:
+                    model.validation(loader, 'kernels_vs_plain', None)
+                    metrics = dict(model.metric_results)
+                    for batch in loader:
+                        x = batch['lq'].to(model.device)
+                        h, w = x.shape[2:]
+                        xp = flip_pad(x, (h // sr.wsz + 1) * sr.wsz - h,
+                                      (w // sr.wsz + 1) * sr.wsz - w)
+                        with torch.no_grad():
+                            out, _, _, idx = model.eval_net()(xp)
+                        outs.append((out.float().clamp(0, 1)[
+                            :, :, :4 * h, :4 * w], idx[0]))
+                runs[name] = (metrics, outs)
+    finally:
+        del model._save_best_models
+        model.best_metric_results = best
+    (mk, ok), (mp, op) = runs['kernels'], runs['plain']
+    info = dict(metrics_kernels=mk, metrics_plain=mp, images=[])
+    for (out_k, idx_k), (out_p, idx_p) in zip(ok, op):
+        info['images'].append(dict(
+            index_agreement=(idx_k == idx_p).float().mean().item(),
+            mean_abs_diff=(out_k - out_p).abs().mean().item(),
+            max_abs_diff=(out_k - out_p).abs().max().item()))
+    diffs = {k: abs(mk[k] - mp[k]) for k in mk}
+    info['metric_abs_diff'] = diffs
+    print('[validate] LQ validation f32, kernels vs plain versions: '
+          + '; '.join(f'image {i}: index agreement '
+                      f'{r["index_agreement"]:.6f}, output mean_abs_diff '
+                      f'{r["mean_abs_diff"]:.3e} max_abs_diff '
+                      f'{r["max_abs_diff"]:.3e}'
+                      for i, r in enumerate(info['images']))
+          + '; metrics ' + ', '.join(f'{k} {mk[k]:.6f} vs {mp[k]:.6f}'
+                                     for k in mk), flush=True)
+    require(sorted(mk) == ['lpips', 'psnr', 'ssim'],
+            f'validation metrics {sorted(mk)}')
+    for r in info['images']:
+        require(r['index_agreement'] >= 0.999 and r['mean_abs_diff'] <= 1e-4,
+                f'validation kernels vs plain: {r}')
+    for k, tol in VAL_TOL.items():
+        require(diffs[k] <= tol, f'validation {k}: kernels vs plain differ '
+                                 f'by {diffs[k]} (tol {tol})')
+    return info
+
+
+def validation_breakdown(model, loader, work: str, reps: int = 2) -> dict:
+    """ms per LQ validation image by part, on the host clock with a
+    synchronize after each part, over `reps` passes of the val set: reading
+    the pair, the forward (model.test), the 8-bit levels and the GT on the
+    card, each metric, the PNG write."""
+    from femasr_torch import kernels
+    from femasr_torch.utils.img_util import imwrite, round_8bit
+    dev = model.device
+    funcs = model._metric_funcs()
+    parts = dict.fromkeys(['read pair (cv2)', 'forward (model.test)',
+                           '8-bit levels, GT to card']
+                          + [f'metric {m}' for m in funcs]
+                          + ['PNG write (cv2)'], 0.0)
+    path = os.path.join(work, 'breakdown.png')
+
+    def timed(part, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        parts[part] += (time.perf_counter() - t0) * 1e3
+        return out
+    data = loader.dataset
+    with counting_off(*kernels.MODULES.values()):
+        for _ in range(reps):
+            for i in range(len(data)):
+                item = timed('read pair (cv2)', lambda: data[i])
+                sr = timed('forward (model.test)',
+                           lambda: model.test(item['lq'][None]))
+                levels, gt = timed('8-bit levels, GT to card', lambda: (
+                    round_8bit(sr)[0].permute(1, 2, 0),
+                    item['gt'].permute(1, 2, 0).to(dev)))
+                for m, fn in funcs.items():
+                    timed(f'metric {m}', lambda: fn(levels / 255.0, gt))
+                timed('PNG write (cv2)', lambda: imwrite(
+                    levels.flip(-1).to(torch.uint8).cpu().numpy(), path))
+    n = reps * len(data)
+    out = {k: v / n for k, v in parts.items()}
+    print('[validate] LQ validation image, ms by part (host clock, '
+          'synchronized, warm): ' + ', '.join(f'{k} {v:.1f}'
+                                             for k, v in out.items())
+          + f'; sum {sum(out.values()):.1f}', flush=True)
+    return out
+
+
+def offline_evaluation(dev, work: str, best_pth: str, lpips_pth: str,
+                       val_root: str, want: dict) -> dict:
+    """python -m femasr_torch.test_cli -opt <options/test_FeMaSR.yml on the
+    val set, pointed at best_pth> in `work`: the metrics of the in-training
+    validation that saved best_pth (EVAL_TOL), the images written, and the
+    launches per image."""
+    from femasr_torch import kernels, test_cli
+    opt = load_yml(TEST_YML)
+    data = opt['datasets']['test_1']
+    data.update(dataroot_gt=os.path.join(val_root, 'gt'),
+                dataroot_lq=os.path.join(val_root, 'lq'))
+    opt.update(name='smoke_eval', device=str(dev))
+    opt['path'].update(pretrain_network_g=best_pth, pretrain_lpips=lpips_pth)
+    opt_path = os.path.join(work, 'smoke_eval.json')
+    with open(opt_path, 'w') as f:
+        json.dump(opt, f)
+    cwd = os.getcwd()
+    os.chdir(work)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        model = test_cli.main(['-opt', opt_path])
+    finally:
+        os.chdir(cwd)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    got = dict(model.metric_results)
+    vis = os.path.join(work, 'results', 'smoke_eval', 'visualization',
+                       data['name'])
+    written = sorted(os.listdir(vis)) if os.path.isdir(vis) else []
+    n = len(VAL_LR)
+    diffs = {k: abs(got[k] - want[k]) for k in want}
+    print(f'[evaluate] test_cli on net_g_best, {n} images in {seconds:.1f} '
+          f's (model build included): '
+          + ', '.join(f'{k} {got[k]:.6f} (in training {want[k]:.6f})'
+                      for k in want)
+          + f'; launches {counts}; wrote {written}', flush=True)
+    require(sorted(got) == sorted(want), f'evaluation metrics {sorted(got)}')
+    for k, tol in EVAL_TOL.items():
+        require(diffs[k] <= tol, f'evaluation {k}: {got[k]} vs '
+                                 f'{want[k]} in training (tol {tol})')
+    require(len(written) == n and all(
+        f.endswith(f'_{opt["name"]}.png') for f in written),
+        f'evaluation images {written} in {vis}')
+    want_counts = {k: VAL_LAUNCHES['lq'].get(k, 0) * n for k in counts}
+    require(counts == want_counts, f'evaluation launches {counts}, '
+                                   f'expected {want_counts}')
+    return dict(metrics=got, metric_abs_diff=diffs, seconds=seconds,
+                launches=counts, images_written=written)
 
 
 def near_ties(z: torch.Tensor, cb: torch.Tensor, a: torch.Tensor,
@@ -1498,42 +1792,58 @@ def train_phase(dev, work: str) -> dict:
     and held to the uninterrupted run), one G step held against the plain
     versions, then the HQ stage; times, peak memory and a profile."""
     from femasr_torch import kernels
+    from femasr_torch.data import build_dataset, build_eval_loader
     inputs = train_inputs(work)
+    vals = val_inputs(work)
     out = {}
 
-    # LQ stage, uninterrupted, saving the state at LQ_SAVE_AT
+    # LQ stage, uninterrupted, saving the state at LQ_SAVE_AT, validating
+    # at LQ_VAL_FREQ and after the loop
     lq_opt = release_options(LQ_YML, 'smoke_lq', inputs, LQ_ITERS,
-                             LQ_SAVE_AT)
+                             LQ_SAVE_AT, vals['lq'], LQ_VAL_FREQ)
     lq_opt['path'] = {'pretrain_network_hq': inputs['hq'],
                       'pretrain_lpips': inputs['lpips'], 'strict_load': False}
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
+    lq_calls = []
     t0 = time.perf_counter()
-    model, full = run_train_cli(work, lq_opt)
+    with probe_validation(dev, lq_calls):
+        model, full = run_train_cli(work, lq_opt)
     lq_seconds = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
+    counts, peak = stage_counts_and_peak(dev, lq_calls)
     require(model.cri_perceptual is not None and model.use_dis,
             'LQ stage: LPIPS or the GAN loss is off')
     require([r['iter'] for r in full] == list(range(1, LQ_ITERS + 1)),
             f'LQ stage logged {[r["iter"] for r in full]}')
     check_losses(full, 'LQ')
     check_launches(counts, 'lq', LQ_ITERS)
+    want_iters = list(range(LQ_VAL_FREQ, LQ_ITERS + 1, LQ_VAL_FREQ)) + [
+        LQ_ITERS]
+    require([c['iter'] for c in lq_calls] == want_iters,
+            f'LQ stage validated at {[c["iter"] for c in lq_calls]}, '
+            f'expected {want_iters}')
+    print_validations(lq_calls, 'LQ')
     out['lq'] = dict(iterations=LQ_ITERS, seconds=lq_seconds,
                      launches=counts, peak_memory_bytes=peak,
-                     losses=full[-1])
+                     losses=full[-1], validations=val_records(lq_calls),
+                     validation_launches_per_image=check_val_launches(
+                         lq_calls, 'lq'))
     print(f'[train] LQ stage: {LQ_ITERS} iterations in {lq_seconds:.1f} s '
-          f'(model build and the first iterations included); peak '
-          f'max_memory_allocated {peak / 2**30:.2f} GiB; last losses '
+          f'(model build, the first iterations and {len(lq_calls)} '
+          f'validations included); peak max_memory_allocated '
+          f'{peak / 2**30:.2f} GiB; last losses '
           + ', '.join(f'{k} {full[-1][k]:.4f}' for k in TRAIN_LOSSES),
           flush=True)
 
-    # resumed at LQ_SAVE_AT: its losses against the uninterrupted run's
+    # resumed at LQ_SAVE_AT (without validation): its losses against the
+    # uninterrupted run's
     state = os.path.join(work, 'experiments', 'smoke_lq', 'training_states',
                          f'{LQ_SAVE_AT}.state')
+    resume_opt = {k: v for k, v in lq_opt.items() if k != 'val'}
+    resume_opt['datasets'] = {'train': lq_opt['datasets']['train']}
     with counting_off(*kernels.MODULES.values()):
         resumed, again = run_train_cli(
-            work, lq_opt, '--force_yml', f'path:resume_state={state}')
+            work, resume_opt, '--force_yml', f'path:resume_state={state}')
     require([r['iter'] for r in again] == list(range(LQ_SAVE_AT + 1,
                                                      LQ_ITERS + 1)),
             f'resumed run logged {[r["iter"] for r in again]}')
@@ -1547,6 +1857,22 @@ def train_phase(dev, work: str) -> dict:
     out['lq']['resume_worst_rel_diff'] = worst
     del resumed
 
+    # offline evaluation of net_g_best, then the trained model's validation
+    # through the kernels against the plain versions
+    saver = last_saving_validation(lq_calls, lq_opt['val']['key_metric'])
+    out['lq']['evaluation'] = offline_evaluation(
+        dev, work, os.path.join(work, 'experiments', 'smoke_lq', 'models',
+                                'net_g_best.pth'),
+        inputs['lpips'], vals['lq'], saver['metrics'])
+    out['lq']['evaluation']['of_validation_at'] = saver['iter']
+    torch.cuda.empty_cache()
+    loader = build_eval_loader(build_dataset(dict(
+        lq_opt['datasets']['val'], phase='val')))
+    out['lq']['validation_kernels_vs_plain'] = validation_kernels_vs_plain(
+        model, loader)
+    out['lq']['validation_ms_by_part'] = validation_breakdown(model, loader,
+                                                              work)
+
     batch = first_batch(lq_opt)
     out['lq']['g_step_kernels_vs_plain'] = g_step_kernels_vs_plain(model,
                                                                    batch)
@@ -1557,21 +1883,27 @@ def train_phase(dev, work: str) -> dict:
     torch.cuda.empty_cache()
 
     # HQ stage: the HQ prior trained on, with the semantic loss
-    hq_opt = release_options(HQ_YML, 'smoke_hq', inputs, HQ_ITERS, 1e9)
+    # (one validation, after the loop, of one image)
+    hq_opt = release_options(HQ_YML, 'smoke_hq', inputs, HQ_ITERS, 1e9,
+                             vals['hq'], 1e9)
     hq_opt['path'] = {'pretrain_network_g': inputs['hq'],
                       'pretrain_lpips': inputs['lpips'],
                       'pretrain_vgg': inputs['vgg19'], 'strict_load': False}
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
+    hq_calls = []
     t0 = time.perf_counter()
-    model, records = run_train_cli(work, hq_opt)
+    with probe_validation(dev, hq_calls):
+        model, records = run_train_cli(work, hq_opt)
     hq_seconds = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
+    counts, peak = stage_counts_and_peak(dev, hq_calls)
     require(model.use_semantic and model.cri_perceptual is not None,
             'HQ stage: the semantic or the LPIPS loss is off')
     check_losses(records, 'HQ')
     check_launches(counts, 'hq', HQ_ITERS)
+    got = [(c['iter'], c['images']) for c in hq_calls]
+    require(got == [(HQ_ITERS, 1)], f'HQ stage validations {got}')
+    print_validations(hq_calls, 'HQ')
     start = torch.load(inputs['hq'])['params'][
         'quantize_group.0.embedding.weight']
     moved = (model.net_g.quantize_group[0].embedding.weight.detach().cpu()
@@ -1584,7 +1916,10 @@ def train_phase(dev, work: str) -> dict:
     require(moved > 0, 'HQ stage: the codebook did not change')
     out['hq'] = dict(iterations=HQ_ITERS, seconds=hq_seconds,
                      launches=counts, peak_memory_bytes=peak,
-                     codebook_max_change=moved, losses=records[-1])
+                     codebook_max_change=moved, losses=records[-1],
+                     validations=val_records(hq_calls),
+                     validation_launches_per_image=check_val_launches(
+                         hq_calls, 'hq'))
     batch = first_batch(hq_opt)
     out['hq']['timing'] = time_iterations(model, batch, reps=2)
     out['hq']['profile'] = profile_iteration(
@@ -1699,6 +2034,13 @@ def main() -> int:
             launches_training={f'{stage}_per_iteration': train[stage][
                 'launches'][name] / train[stage]['iterations']
                 for stage in ('lq', 'hq')},
+            # the validation path's, per image, and test_cli's
+            launches_validation=dict(
+                {f'{stage}_per_image': train[stage][
+                    'validation_launches_per_image'][name]
+                 for stage in ('lq', 'hq')},
+                evaluation_per_image=train['lq']['evaluation']['launches'][
+                    name] / len(VAL_LR)),
             max_abs_err=r['max_abs_err'], ms=r['ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
             bound_by=r['bound_by'], library_ms=r['library_ms'],

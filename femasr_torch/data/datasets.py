@@ -1,5 +1,7 @@
-"""Training data (counterpart of femasr_tpu/data/datasets.py, sampler.py
-and loader.py): PairedImageDataset through a plain torch DataLoader.
+"""Data (counterpart of femasr_tpu/data/datasets.py, sampler.py and
+loader.py): PairedImageDataset for training and validation and
+SingleImageDataset (LQ only) for evaluation, through plain torch
+DataLoaders.
 
 Randomness is explicit and independent of the worker count: the sampler
 (`EpochSampler`) yields (index, seed) items, and the dataset draws its crop
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader, Dataset, Sampler
 
-from .data_util import make_dataset
+from ..utils.matlab_functions import rgb2ycbcr
+from .data_util import make_dataset, paths_from_folder
 from .transforms import augment, paired_random_crop
 
 
@@ -52,8 +55,10 @@ def _folder(root: str):
 class PairedImageDataset(Dataset):
     """LQ/GT pairs from two folders, paired by sorted order. In the train
     phase: use_resize_crop (a random rescale of both, then matching
-    gt_size crops), use_flip, use_rot. Items are dicts of (3, H, W)
-    float32 tensors in [0, 1] and the two paths."""
+    gt_size crops), use_flip, use_rot. In the val and test phases the whole
+    images, or with crop_eval_size a matching crop of that GT size (drawn
+    from the item's index). Items are dicts of (3, H, W) float32 tensors in
+    [0, 1] and the two paths."""
 
     def __init__(self, opt: dict):
         self.opt = opt
@@ -85,8 +90,43 @@ class PairedImageDataset(Dataset):
             img_gt, img_lq = augment([img_gt, img_lq],
                                      self.opt.get('use_flip', False),
                                      self.opt.get('use_rot', False), rng)
+        elif self.opt.get('crop_eval_size'):
+            img_gt, img_lq = paired_random_crop(
+                img_gt, img_lq, self.opt['crop_eval_size'],
+                img_gt.shape[0] // img_lq.shape[0], rng, gt_path)
         return {'lq': _chw(img_lq), 'gt': _chw(img_gt), 'lq_path': lq_path,
                 'gt_path': gt_path}
+
+
+class SingleImageDataset(Dataset):
+    """LQ-only images for evaluation: the files of `dataroot_lq`, or the
+    first field of each line of `meta_info_file` under it. color: y gives
+    the MATLAB Y channel; mean / std normalize. Items are {'lq': (C, H, W)
+    float32 tensor, 'lq_path'}."""
+
+    def __init__(self, opt: dict):
+        self.opt = opt
+        if opt.get('meta_info_file') is not None:
+            with open(opt['meta_info_file']) as f:
+                self.lq_paths = [
+                    f"{opt['dataroot_lq']}/{line.strip().split(' ')[0]}"
+                    for line in f]
+        else:
+            self.lq_paths = paths_from_folder(opt['dataroot_lq'])
+
+    def __len__(self) -> int:
+        return len(self.lq_paths)
+
+    def __getitem__(self, index: int) -> Dict:
+        lq_path = self.lq_paths[index]
+        img_lq = read_rgb(lq_path)
+        if self.opt.get('color') == 'y':
+            img_lq = rgb2ycbcr(img_lq, y_only=True)[..., None]
+        mean, std = self.opt.get('mean'), self.opt.get('std')
+        if mean is not None or std is not None:
+            img_lq = ((img_lq - np.asarray(mean or 0.0, np.float32))
+                      / np.asarray(std or 1.0, np.float32))
+        return {'lq': _chw(img_lq), 'lq_path': lq_path}
 
 
 class BSRGANTrainDataset(Dataset):
@@ -100,7 +140,8 @@ class BSRGANTrainDataset(Dataset):
 
 
 DATASETS = {'PairedImageDataset': PairedImageDataset,
-            'BSRGANTrainDataset': BSRGANTrainDataset}
+            'BSRGANTrainDataset': BSRGANTrainDataset,
+            'SingleImageDataset': SingleImageDataset}
 
 
 def build_dataset(opt: dict) -> Dataset:
@@ -147,3 +188,11 @@ def build_train_loader(dataset: Dataset, opt: dict, seed: int,
         generator=torch.Generator().manual_seed(seed),
         persistent_workers=False)
     return loader, sampler
+
+
+def build_eval_loader(dataset: Dataset) -> DataLoader:
+    """A validation / test loader: batch 1, in order, no workers. Its
+    generator is its own, so iterating it draws nothing from torch's
+    global random stream."""
+    return DataLoader(dataset, batch_size=1, shuffle=False, num_workers=0,
+                      generator=torch.Generator().manual_seed(0))

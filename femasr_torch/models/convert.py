@@ -5,8 +5,9 @@ init as the JAX package's merge_params does).
 `femasr_param_mapping` is this package's copy of the flax-path -> torch-key
 table of femasr_tpu/models/convert.py; `from_flax` applies it backwards:
 conv kernels (kh, kw, I, O) -> (O, I, kh, kw), dense kernels (I, O) ->
-(O, I), norm scale -> weight. `discriminator_from_flax`, `vgg_from_flax`
-and `lpips_from_flax` carry the training networks' trees the same way.
+(O, I), norm scale -> weight. `discriminator_from_flax`, `vgg_from_flax`,
+`lpips_from_flax` and `inception_from_flax` carry the training and metric
+networks' trees the same way.
 Checkpoints: the generator and the discriminator are saved and loaded in
 the reference's torch keys ({'params': ..., 'params_ema': ...} .pth files;
 the discriminator's spectral u / v as `conv{i}.weight_u` / `weight_v`).
@@ -233,3 +234,34 @@ def merge_state_dict(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
               f'{len(missing)} missing (init kept), {len(skipped)} skipped '
               f'(shape mismatch); e.g. {(unused + missing + skipped)[:3]}')
     return counts
+
+
+def inception_from_flax(params: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX InceptionV3FID params -> the port's InceptionV3FID state dict
+    (pt_inception keys)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+            else:
+                flat['/'.join(path + (k,))] = np.asarray(v, np.float32)
+    walk(params, ())
+    leaf = {'conv/kernel': ('conv.weight', _conv_w),
+            'bn_scale': ('bn.weight', _ident),
+            'bn_bias': ('bn.bias', _ident),
+            'bn_mean': ('bn.running_mean', _ident),
+            'bn_var': ('bn.running_var', _ident)}
+    sd = {}
+    for path, val in flat.items():
+        for suffix, (key, to_torch) in leaf.items():
+            if path.endswith('/' + suffix):
+                prefix = path[:-len(suffix) - 1].replace('/', '.')
+                sd[f'{prefix}.{key}'] = torch.from_numpy(
+                    to_torch(val).copy())
+                break
+        else:
+            raise KeyError(f'unexpected inception param {path}')
+    return sd

@@ -2,9 +2,10 @@
 (counterpart of femasr_tpu/models/inference.py).
 
 Images are NCHW float tensors in [0, 1] (`run_padded`, `run_tiled`) or HWC
-numpy arrays (`__call__`, `run_bucketed`). The model runs under
-torch.inference_mode() in the chosen dtype (float32 or bfloat16) with
-float32 parameters; outputs are clamped to [0, 1] in float32.
+numpy arrays (`__call__`, `run_bucketed`). The model runs in eval mode
+under torch.inference_mode() (a live module, `model=`: torch.no_grad()) in
+the chosen dtype (float32 or bfloat16) with float32 parameters; outputs are
+clamped to [0, 1] in float32.
 """
 
 from __future__ import annotations
@@ -79,6 +80,15 @@ class SRInferencer:
     counts printed); strict=True loads it with load_state_dict(strict=True)
     instead. int8_tail, int8_levels, int8_enc_up, int8_swin, int8_mlp: the
     int8 serving lane of FeMaSRNet (same state dict).
+
+    model: serve this live FeMaSRNet as it stands (the JAX SRInferencer's
+    model=..., init_merge=False form; validation serves the trainee this
+    way): nothing is built, loaded or moved, and the architecture
+    arguments, state_dict and device are ignored. Each forward runs it in
+    eval mode under torch.no_grad() and leaves its train/eval mode and its
+    weights as it found them; no_grad, not inference_mode, so that a tensor
+    cached during the forward (the Swin shift masks) stays usable by
+    autograd in the next training step.
     """
 
     def __init__(self, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
@@ -89,10 +99,18 @@ class SRInferencer:
                  int8_enc_up: bool = False, int8_swin: bool = False,
                  int8_mlp: bool = False, strict: bool = False,
                  lq_stage: bool = True, gt_resolution: int = 256,
-                 norm_type: str = 'gn', act_type: str = 'silu'):
-        self.device = resolve_device(device)
+                 norm_type: str = 'gn', act_type: str = 'silu',
+                 model: Optional[FeMaSRNet] = None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
+        self.dtype = dtype
+        self.max_tile_batch = max_tile_batch
+        self.live = model is not None
+        if self.live:
+            self.device = next(model.parameters()).device
+            self._set_model(model)
+            return
+        self.device = resolve_device(device)
         model = FeMaSRNet(codebook_params=[list(p) for p in codebook_params],
                           LQ_stage=lq_stage, scale_factor=scale_factor,
                           gt_resolution=gt_resolution, norm_type=norm_type,
@@ -106,17 +124,23 @@ class SRInferencer:
             model.load_state_dict(state_dict, strict=True)
         else:
             merge_state_dict(model, state_dict, seeded_init)
-        self.model = model.to(self.device).eval()
-        self.scale = self.model.scale_factor
-        self.dtype = dtype
-        self.max_tile_batch = max_tile_batch
+        self._set_model(model.to(self.device).eval())
+
+    def _set_model(self, model: FeMaSRNet) -> None:
+        self.model = model
+        self.scale = model.scale_factor
         # pad target: multiple of window_size * 8 at the Swin resolution
         self.wsz = max(8 // self.scale, 1) * 8
 
     def _run(self, x: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
-            out = self.model(x.to(self.device, self.dtype))[0]
-            return out.float().clamp_(0.0, 1.0)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad() if self.live else torch.inference_mode():
+                out = self.model(x.to(self.device, self.dtype))[0]
+                return out.float().clamp_(0.0, 1.0)
+        finally:
+            self.model.train(was_training)
 
     # -- whole image -------------------------------------------------------
 

@@ -1,5 +1,6 @@
-"""Shared trainer facilities: EMA, checkpoint and training-state I/O
-(counterpart of femasr_tpu/train/base_model.py).
+"""Shared trainer facilities: the validation dispatch and best-metric
+records, EMA, checkpoint and training-state I/O (counterpart of
+femasr_tpu/train/base_model.py).
 
 Networks are saved as reference-format .pth files in the reference's torch
 keys: models/<label>_<iter>.pth holding {'params': state dict} (plus
@@ -22,12 +23,57 @@ from ..utils.logger import get_root_logger
 
 
 class BaseModel:
-    """Option handling, loss-log bookkeeping, checkpoint I/O."""
+    """Option handling, loss-log and metric bookkeeping, checkpoint I/O."""
 
     def __init__(self, opt: dict):
         self.opt = opt
         self.is_train = opt.get('is_train', False)
         self.log_dict: Dict[str, float] = {}
+        # dataset name -> metric -> {'better', 'val', 'iter'}
+        self.best_metric_results: Dict[str, Dict[str, Dict[str, Any]]] = {}
+
+    # -- validation ------------------------------------------------------
+
+    def validation(self, dataloader, current_iter, tb_logger,
+                   save_img: bool = False) -> None:
+        if self.opt.get('dist', False):
+            self.dist_validation(dataloader, current_iter, tb_logger,
+                                 save_img)
+        else:
+            self.nondist_validation(dataloader, current_iter, tb_logger,
+                                    save_img)
+
+    def dist_validation(self, *args, **kwargs):
+        raise NotImplementedError('validation across processes is not '
+                                  'ported yet (ROADMAP A11, multi-GPU)')
+
+    def nondist_validation(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def _initialize_best_metric_results(self, dataset_name: str) -> None:
+        if dataset_name in self.best_metric_results:
+            return
+        record = {}
+        for metric, content in self.opt['val']['metrics'].items():
+            better = content.get('better', 'higher')
+            init_val = float('-inf') if better == 'higher' else float('inf')
+            record[metric] = {'better': better, 'val': init_val, 'iter': -1}
+        self.best_metric_results[dataset_name] = record
+
+    def _update_best_metric_result(self, dataset_name: str, metric: str,
+                                   val: float, current_iter) -> bool:
+        """Record val if it is at least as good as the best; True if so."""
+        rec = self.best_metric_results[dataset_name][metric]
+        improved = (val >= rec['val'] if rec['better'] == 'higher'
+                    else val <= rec['val'])
+        if improved:
+            rec['val'], rec['iter'] = val, current_iter
+        return improved
+
+    def _update_metric_result(self, dataset_name: str, metric: str,
+                              val: float, current_iter) -> None:
+        rec = self.best_metric_results[dataset_name][metric]
+        rec['val'], rec['iter'] = val, current_iter
 
     @staticmethod
     @torch.no_grad()

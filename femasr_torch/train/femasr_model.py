@@ -21,25 +21,35 @@ One iteration, in the JAX step's order and with its gates:
      Gated off, neither the parameters nor the spectral vectors change.
   5. The EMA of the generator's parameters (ema_decay > 0).
 The learning rate of update k is the schedule at step k.
+
+Validation (`validation`, every `val.val_freq` iterations) and offline
+evaluation (test_cli) serve the trainee, or with ema_decay > 0 one eval
+copy holding the EMA weights, through SRInferencer's live-module form
+(no_grad, eval mode, the conv3 tail, attention and search as kernels):
+whole images below 8000^2 px, tiles above. The metrics see the output's
+8-bit levels in RGB, as tensor2img writes them, against the GT as read.
 """
 
 from __future__ import annotations
 
 import os
 from collections import OrderedDict
+from os import path as osp
 from typing import Any, Dict, Mapping, Optional
 
 import torch
 
 from ..losses import LPIPSLoss, PerceptualLoss, build_loss
 from ..losses.lpips import convert_lpips_checkpoint
+from ..metrics import create_metric
 from ..models.convert import load_torch_checkpoint, merge_state_dict
 from ..models.discriminator_arch import UNetDiscriminatorSN, init_discriminator
 from ..models.femasr_arch import FeMaSRNet, init_weights
-from ..models.inference import resolve_device
+from ..models.inference import SRInferencer, resolve_device
 from ..models.vgg_arch import (VGGFeatureExtractor, convert_vgg_checkpoint,
                                vgg_truncated_state)
 from ..ops.quantize import codebook_perplexity
+from ..utils.img_util import imwrite, round_8bit
 from ..utils.logger import get_root_logger
 from .base_model import BaseModel
 from .lr_scheduler import build_schedule
@@ -134,8 +144,13 @@ class FeMaSRModel(BaseModel):
             self.net_hq.to(self.device)
         self.lpips_sd = self._load_lpips()
         self.vgg_sd = self._load_vgg()
+        self.ema = None
+        self.net_g_ema = None       # the eval copy of the EMA weights
+        self._inferencer = None
         if self.is_train:
             self.init_training_settings()
+        else:
+            self.net_g.requires_grad_(False).eval()
 
     # -- setup -----------------------------------------------------------
 
@@ -386,6 +401,134 @@ class FeMaSRModel(BaseModel):
 
     def get_current_learning_rate(self):
         return [self.sched_g(self.step), self.sched_d(self.step)]
+
+    # -- validation and evaluation -------------------------------------------
+
+    def eval_net(self) -> FeMaSRNet:
+        """The network validation serves: the trainee, or with ema_decay > 0
+        an eval copy that the EMA weights are copied into at each call
+        (built once, under a forked RNG so that no random stream moves)."""
+        if self.ema is None:
+            return self.net_g
+        if self.net_g_ema is None:
+            with torch.random.fork_rng(devices=[]):
+                net = build_generator(self.opt['network_g'])
+            self.net_g_ema = net.requires_grad_(False).eval().to(self.device)
+        with torch.no_grad():
+            for n, p in self.net_g_ema.named_parameters():
+                p.copy_(self.ema[n])
+        return self.net_g_ema
+
+    def _get_inferencer(self) -> SRInferencer:
+        net = self.eval_net()
+        if self._inferencer is None or self._inferencer.model is not net:
+            self._inferencer = SRInferencer(model=net)
+        return self._inferencer
+
+    def test(self, lq: torch.Tensor) -> torch.Tensor:
+        """SR of a (1, 3, H, W) image in [0, 1]: the whole image below
+        8000^2 px, tiles above. (1, 3, sH, sW) float32 on the device."""
+        sr = self._get_inferencer()
+        h, w = lq.shape[2:]
+        if h * w < 8000 * 8000:
+            return sr.run_padded(lq)
+        return sr.run_tiled(lq)
+
+    def nondist_validation(self, dataloader, current_iter, tb_logger,
+                           save_img: bool = False) -> None:
+        self._run_validation(dataloader, current_iter, tb_logger, save_img)
+
+    def _metric_funcs(self) -> Dict[str, Any]:
+        funcs = {}
+        for name, mopt in self.opt['val']['metrics'].items():
+            kw = {k: v for k, v in mopt.items() if k not in ('type', 'better')}
+            fn = create_metric(mopt['type'], lpips_params=self.lpips_sd,
+                               device=self.device, **kw)
+            if fn is None:
+                get_root_logger().warning(
+                    f'metric {name} unavailable (no LPIPS weights: set '
+                    'path.pretrain_lpips), skipped')
+            else:
+                funcs[name] = fn
+        return funcs
+
+    def _save_path(self, img_name: str, current_iter, dataset_name: str
+                   ) -> str:
+        vis = self.opt['path']['visualization']
+        if self.is_train:
+            return osp.join(vis, 'image_results', f'{current_iter}',
+                            f'{img_name}.png')
+        suffix = self.opt['val'].get('suffix') or self.opt['name']
+        return osp.join(vis, dataset_name, f'{img_name}_{suffix}.png')
+
+    def _run_validation(self, dataloader, current_iter, tb_logger,
+                        save_img: bool) -> None:
+        """SR every image of the loader; with `val.metrics`, average each
+        metric over the images that have a GT, keep the best records (by
+        `val.key_metric`, or per metric when it is absent or skipped) and
+        save net_g_best / net_d_best when they improve."""
+        dataset_name = dataloader.dataset.opt['name']
+        metric_funcs = (self._metric_funcs()
+                        if self.opt['val'].get('metrics') else {})
+        self.metric_results = {m: 0.0 for m in metric_funcs}
+        if metric_funcs:
+            self._initialize_best_metric_results(dataset_name)
+        n_gt = 0
+        for val_data in dataloader:
+            img_name = osp.splitext(osp.basename(val_data['lq_path'][0]))[0]
+            # HWC RGB 8-bit levels, on the device
+            levels = round_8bit(self.test(val_data['lq']))[0].permute(1, 2, 0)
+            if save_img:
+                imwrite(levels.flip(-1).to(torch.uint8).cpu().numpy(),
+                        self._save_path(img_name, current_iter,
+                                        dataset_name))
+            if metric_funcs and 'gt' in val_data:
+                n_gt += 1
+                sr01 = levels / 255.0
+                gt = val_data['gt'][0].permute(1, 2, 0).to(self.device)
+                for name, fn in metric_funcs.items():
+                    self.metric_results[name] += fn(sr01, gt)
+        if not n_gt:                # no GT: nothing to measure
+            self.metric_results = {}
+            return
+        for m in self.metric_results:
+            self.metric_results[m] /= n_gt
+        key = self.opt['val'].get('key_metric')
+        if key in self.metric_results:
+            if self._update_best_metric_result(
+                    dataset_name, key, self.metric_results[key],
+                    current_iter):
+                for name, val in self.metric_results.items():
+                    self._update_metric_result(dataset_name, name, val,
+                                               current_iter)
+                self._save_best_models()
+        elif any([self._update_best_metric_result(dataset_name, name, val,
+                                                  current_iter)
+                  for name, val in self.metric_results.items()]):
+            self._save_best_models()
+        self._log_validation_metric_values(current_iter, dataset_name,
+                                           tb_logger)
+
+    def _save_best_models(self) -> None:
+        """net_g_best (the weights validated) and net_d_best; offline
+        evaluation has no models folder and saves nothing."""
+        if not self.is_train:
+            return
+        self.save_network(self.eval_net().state_dict(), 'net_g_best', '')
+        self.save_network(self.net_d.state_dict(), 'net_d_best', '')
+
+    def _log_validation_metric_values(self, current_iter, dataset_name: str,
+                                      tb_logger) -> None:
+        log_str = f'Validation {dataset_name}\n'
+        for metric, value in self.metric_results.items():
+            log_str += f'\t # {metric}: {value:.4f}'
+            rec = self.best_metric_results[dataset_name][metric]
+            log_str += f"\tBest: {rec['val']:.4f} @ {rec['iter']} iter\n"
+        get_root_logger().info(log_str)
+        if tb_logger is not None:
+            for metric, value in self.metric_results.items():
+                tb_logger.add_scalar(f'metrics/{dataset_name}/{metric}',
+                                     value, current_iter)
 
     # -- checkpoints -------------------------------------------------------
 

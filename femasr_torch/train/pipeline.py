@@ -1,12 +1,16 @@
-"""The training loop (counterpart of femasr_tpu/train/pipeline.py).
+"""The training loop and offline evaluation (counterpart of
+femasr_tpu/train/pipeline.py).
 
-Runs `train.total_iter` iterations over the train DataLoader, logs every
-`logger.print_freq`, saves checkpoints and the training state every
-`logger.save_checkpoint_freq` (and the latest networks every
-`save_latest_freq`), and resumes from `path.resume_state` or, with
---auto_resume, from the newest state of the experiment. A resumed run sees
-the batches the uninterrupted run would have seen: the loader restarts at
-the epoch and position of the resumed iteration.
+`train_pipeline` runs `train.total_iter` iterations over the train
+DataLoader, logs every `logger.print_freq`, saves checkpoints and the
+training state every `logger.save_checkpoint_freq` (and the latest networks
+every `save_latest_freq`), validates on `datasets.val` every `val.val_freq`
+and once more after the last iteration, and resumes from
+`path.resume_state` or, with --auto_resume, from the newest state of the
+experiment. A resumed run sees the batches the uninterrupted run would
+have seen: the loader restarts at the epoch and position of the resumed
+iteration. `test_pipeline` evaluates `path.pretrain_network_g` on each
+dataset of the options.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import time
 from os import path as osp
 from typing import Optional
 
-from ..data import build_dataset, build_train_loader
+from ..data import build_dataset, build_eval_loader, build_train_loader
 from ..models.inference import resolve_device
 from ..utils.logger import (AvgTimer, MessageLogger, get_env_info,
                             get_root_logger, init_tb_logger)
@@ -75,6 +79,15 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
     dataset_opt = opt['datasets']['train']
     model = FeMaSRModel(opt)
     train_set = build_dataset(dataset_opt)
+    val_loader = None
+    for phase, vopt in opt['datasets'].items():
+        if phase == 'val':
+            val_loader = build_eval_loader(build_dataset(vopt))
+            logger.info(f'Number of val images in {vopt["name"]}: '
+                        f'{len(val_loader.dataset)}')
+        elif phase != 'train':
+            raise ValueError(f'Dataset phase {phase} is not recognized.')
+    val_opt = opt.get('val') if val_loader is not None else None
     loader, sampler = build_train_loader(
         train_set, dataset_opt, opt['manual_seed'],
         pin_memory=model.device.type == 'cuda')
@@ -124,6 +137,10 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
                        current_iter):
                 logger.info('Saving latest models.')
                 model.save(epoch, -1)
+            if val_opt is not None and crossed(val_opt['val_freq'],
+                                               prev_iter, current_iter):
+                model.validation(val_loader, current_iter, tb_logger,
+                                 val_opt.get('save_img', False))
             data_timer.start()
             iter_timer.start()
             if current_iter >= total_iters:
@@ -134,6 +151,35 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
     logger.info(f'End of training. Time consumed: {consumed}')
     logger.info('Save the latest model.')
     model.save(epoch=-1, current_iter=-1)
+    if val_opt is not None:
+        model.validation(val_loader, current_iter, tb_logger,
+                         val_opt.get('save_img', False))
     if tb_logger is not None:
         tb_logger.close()
+    return model
+
+
+def test_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
+                  ) -> FeMaSRModel:
+    """Evaluate the options' network on each of their datasets, in name
+    order: SR images to results/<name>/visualization/<dataset>/ (unless
+    val.save_img is false) and the val metrics on the datasets with GT."""
+    opt, _ = parse_options(root_path, is_train=False, argv=argv, opt=opt)
+    resolve_device(opt['device'])       # no card: stop before any file
+    make_exp_dirs(opt)
+    logger = get_root_logger(log_level=logging.INFO, log_file=osp.join(
+        opt['path']['log'], f"test_{opt['name']}_{get_time_str()}.log"))
+    logger.info(get_env_info())
+    logger.info(dict2str(opt))
+    loaders = []
+    for _, dataset_opt in sorted(opt['datasets'].items()):
+        loader = build_eval_loader(build_dataset(dataset_opt))
+        logger.info(f"Number of test images in {dataset_opt['name']}: "
+                    f'{len(loader.dataset)}')
+        loaders.append(loader)
+    model = FeMaSRModel(opt)
+    for loader in loaders:
+        logger.info(f"Testing {loader.dataset.opt['name']}...")
+        model.validation(loader, current_iter=opt['name'], tb_logger=None,
+                         save_img=opt['val'].get('save_img', True))
     return model

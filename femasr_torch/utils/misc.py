@@ -28,9 +28,11 @@ def mkdir_and_rename(path: str) -> None:
 
 
 def make_exp_dirs(opt: dict) -> None:
-    """experiments/<name>/{models, training_states, visualization}."""
+    """experiments/<name>/{models, training_states, visualization} for
+    training, results/<name>/visualization for evaluation."""
     path_opt = dict(opt['path'])
-    mkdir_and_rename(path_opt.pop('experiments_root'))
+    mkdir_and_rename(path_opt.pop('experiments_root' if opt['is_train']
+                                  else 'results_root'))
     for key, p in path_opt.items():
         if ('strict_load' in key or 'pretrain' in key or 'resume' in key
                 or 'param_key' in key or p is None):

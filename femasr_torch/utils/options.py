@@ -1,10 +1,11 @@
-"""Training options: the YAML (or JSON) schema and CLI of the JAX package
-(counterpart of femasr_tpu/utils/options.py), for one device.
+"""Training and test options: the YAML (or JSON) schema and CLI of the JAX
+package (counterpart of femasr_tpu/utils/options.py), for one device.
 
 `parse_options` reads the file (`!!float` tags and anchors as PyYAML reads
 them; a `.json` file needs no PyYAML) or takes a ready dict, applies
 `--force_yml` overrides, refuses what the port does not carry (see
-`check_port_options`), and fills in the experiment paths. The device is
+`check_port_options`), and fills in the paths: experiments/<name>/ for
+training, results/<name>/ for evaluation (is_train=False). The device is
 `device` in the options: CUDA by default, the CPU only when asked.
 """
 
@@ -131,15 +132,9 @@ def check_port_options(opt: dict) -> None:
         if (dopt or {}).get('on_device_degradation'):
             refuse(f'datasets.{phase}.on_device_degradation needs the '
                    'degradations, not ported yet (ROADMAP A9)')
-    val = opt.get('val')
-    if val is not None:
-        total = int(float(opt.get('train', {}).get('total_iter', 0)))
-        if (float(val.get('val_freq', float('inf'))) <= total
-                or 'val' in (opt.get('datasets') or {})):
-            refuse('validation (the val block) needs the metrics, not '
-                   'ported yet (ROADMAP A10): remove `val` and the val '
-                   'dataset, or set val_freq beyond total_iter without a '
-                   'val dataset')
+    if opt.get('dist'):
+        refuse('dist (training and validation across processes) is not '
+               'ported yet (ROADMAP A11, multi-GPU)')
 
 
 def parse_options(root_path: str, is_train: bool = True,
@@ -191,8 +186,14 @@ def parse_options(root_path: str, is_train: bool = True,
                            training_states=osp.join(root, 'training_states'),
                            visualization=osp.join(root, 'visualization'))
         if 'debug' in opt['name']:
+            if 'val' in opt:
+                opt['val']['val_freq'] = 8
             opt['logger']['print_freq'] = 1
             opt['logger']['save_checkpoint_freq'] = 8
+    else:
+        root = osp.join(root_path, 'results', opt['name'])
+        opt['path'].update(results_root=root, log=root,
+                           visualization=osp.join(root, 'visualization'))
     return opt, args
 
 

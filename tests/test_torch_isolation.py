@@ -1,7 +1,7 @@
 """The port stands alone: no module of femasr_torch, and not chip_smoke.py,
 imports jax, flax or femasr_tpu; the package imports with jax blocked;
-and its entry points (serving, and the trainer's train_cli) default to the
-card rather than falling back to the CPU."""
+and its entry points (serving, the trainer's train_cli and the evaluation's
+test_cli) default to the card rather than falling back to the CPU."""
 
 import ast
 import os
@@ -45,7 +45,7 @@ for name in ('jax', 'flax', 'femasr_tpu'):
     sys.modules[name] = None           # any import of these now fails
 import torch
 import femasr_torch, femasr_torch.kernels, femasr_torch.inference_cli
-import femasr_torch.train_cli
+import femasr_torch.train_cli, femasr_torch.test_cli
 from femasr_torch.models import SRInferencer
 from femasr_torch.models.inference import load_inferencer
 OPT = {'name': 'probe', 'model_type': 'FeMaSRModel', 'manual_seed': 0,
@@ -57,7 +57,8 @@ if torch.cuda.is_available():
 else:
     for fn in (lambda: SRInferencer(),
                lambda: load_inferencer('missing.pth'),
-               lambda: femasr_torch.train_cli.main([], opt=OPT)):
+               lambda: femasr_torch.train_cli.main([], opt=OPT),
+               lambda: femasr_torch.test_cli.main([], opt=OPT)):
         try:
             fn()
         except RuntimeError as e:

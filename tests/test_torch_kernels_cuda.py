@@ -7,6 +7,8 @@ only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -366,3 +368,72 @@ def test_int8_wrappers_count_launches(gen):
     matmul_w8a8.matmul_w8a8(x.cpu(), w.cpu())
     assert (matmul_w8a8.launches, matmul_w8a8_q.launches,
             conv3_w8a8.launches) == tuple(b + 1 for b in before)
+
+
+def test_validation_through_kernels_matches_plain(gen, tmp_path):
+    """Validation of a SMALL-codebook LQ model on the card: per image B1 5,
+    B2 24 and B3 1 launches, no other kernel; then the same validation
+    with every wrapper on its plain version: >= 99.9% equal codebook
+    indices and an output mean abs diff <= 1e-4 per image, PSNR within
+    0.01 dB and SSIM within 1e-4."""
+    import cv2
+    import numpy as np
+
+    from femasr_torch import kernels
+    from femasr_torch.data import PairedImageDataset, build_eval_loader
+    from femasr_torch.models import FeMaSRNet, init_weights
+    from femasr_torch.models.inference import flip_pad
+    from femasr_torch.train import FeMaSRModel
+
+    rng = np.random.default_rng(0)
+    for sub in ('gt', 'lq'):
+        (tmp_path / sub).mkdir()
+    for i, (h, w) in enumerate(((36, 52), (52, 40))):
+        coarse = rng.random((h // 4, w // 4, 3)).astype(np.float32)
+        gt = cv2.resize(coarse, (4 * w, 4 * h),
+                        interpolation=cv2.INTER_LINEAR)
+        gt = (np.clip(gt, 0, 1) * 255).round().astype(np.uint8)
+        cv2.imwrite(str(tmp_path / 'gt' / f'{i}.png'), gt)
+        cv2.imwrite(str(tmp_path / 'lq' / f'{i}.png'),
+                    cv2.resize(gt, (w, h), interpolation=cv2.INTER_AREA))
+    small = [[32, 16, 32]]
+    net = FeMaSRNet(small, LQ_stage=True)
+    init_weights(net, torch.Generator().manual_seed(3))
+    torch.save({'params': net.state_dict()}, str(tmp_path / 'g.pth'))
+    metric = {'crop_border': 4, 'test_y_channel': True}
+    model = FeMaSRModel({
+        'name': 'val_card', 'is_train': False, 'device': 'cuda',
+        'manual_seed': 0, 'path': {'pretrain_network_g':
+                                   str(tmp_path / 'g.pth')},
+        'network_g': {'type': 'FeMaSRNet', 'codebook_params': small,
+                      'LQ_stage': True, 'scale_factor': 4},
+        'val': {'metrics': {'psnr': dict(type='psnr', **metric),
+                            'ssim': dict(type='ssim', **metric)}}})
+    loader = build_eval_loader(PairedImageDataset({
+        'name': 'card', 'phase': 'val', 'dataroot_gt': str(tmp_path / 'gt'),
+        'dataroot_lq': str(tmp_path / 'lq')}))
+    kernels.reset_launches()
+    model.validation(loader, 0, None)
+    want = {'conv3': 10, 'window_attention': 48, 'vq_argmin': 2}
+    assert kernels.launch_counts() == {k: want.get(k, 0)
+                                       for k in kernels.MODULES}
+    runs = []
+    for ctx in (contextlib.nullcontext(), kernels.plain_versions()):
+        with ctx:
+            model.validation(loader, 0, None)
+            outs = []
+            for batch in loader:
+                x = batch['lq'].cuda()
+                h, w = x.shape[2:]
+                xp = flip_pad(x, (h // 16 + 1) * 16 - h,
+                              (w // 16 + 1) * 16 - w)
+                with torch.no_grad():
+                    out, _, _, idx = model.net_g(xp)
+                outs.append((out.clamp(0, 1)[:, :, :4 * h, :4 * w], idx[0]))
+        runs.append((dict(model.metric_results), outs))
+    (mk, ok), (mp, op) = runs
+    for (out_k, idx_k), (out_p, idx_p) in zip(ok, op):
+        assert (idx_k == idx_p).float().mean().item() >= 0.999
+        assert (out_k - out_p).abs().mean().item() <= 1e-4
+    assert abs(mk['psnr'] - mp['psnr']) <= 0.01
+    assert abs(mk['ssim'] - mp['ssim']) <= 1e-4

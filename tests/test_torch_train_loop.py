@@ -170,7 +170,7 @@ def test_generator_ema_tracks_the_weights(folder):
     (lambda o: o['network_g'].update(dtype='bfloat16'), 'later slice'),
     (lambda o: o['network_g'].update(use_checkpoint=True), 'later slice'),
     (lambda o: o['network_g'].update(ws2d_tail=True), 'ws2d_tail'),
-    (lambda o: o.update(val={'val_freq': 2}), 'A10'),
+    (lambda o: o.update(dist=True, val={'val_freq': 2}), 'A11'),
     (lambda o: o['datasets']['train'].update(on_device_degradation=True),
      'A9'),
 ], ids=['chain_steps', 'flat_optimizer', 'attn_pack', 'model_parallel',
