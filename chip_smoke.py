@@ -52,7 +52,22 @@ Phases:
      1e-4); `python -m femasr_torch.test_cli` with options/test_FeMaSR.yml
      on net_g_best gives the metrics of the validation that saved it
      (1e-4 dB, 1e-5) and writes the images;
-  6. print a JSON line of per-kernel numbers (and the training numbers),
+  6. the BSRGAN data (A9), both configurations as shipped on the seeded GT
+     folder (BSRGANTrainDataset, their workers): the LQ stage of
+     options/train_FeMaSR_LQ_stage_ondevice.yml for 8 iterations with the
+     LQ synthesized on the card (B1 5 and B3 2 launches per iteration, no
+     other kernel; resumed at 4 and held to the uninterrupted run, 1e-3),
+     then the degradation alone on a warm batch of 8 GT crops (host and
+     device ms, launches per call, its share of the iteration, no
+     synchronizing op under set_sync_debug_mode('error'), and the card's
+     LQ against the CPU's under the same draws: >= 99.9% of pixels within
+     1e-4, the rest in at most 1% of the final JPEG's 16x16 blocks); the
+     HQ stage of options/train_FeMaSR_HQ_pretrain_stage.yml for 4
+     iterations with its 8 workers degrading on the host (B3 1 per
+     iteration) and a timed host pass over the train set; ms per
+     iteration, images/s, idle share, the loop's wait for data and peak
+     memory of both;
+  7. print a JSON line of per-kernel numbers (and the training numbers),
      the card's name and power limit, and last `{"ok": true, "device":
      {...}}`.
 
@@ -1121,7 +1136,7 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
     return out
 
 
-# -- phase 6: training ---------------------------------------------------------
+# -- phase 5: training ---------------------------------------------------------
 
 LQ_YML = 'options/train_FeMaSR_LQ_stage.yml'
 HQ_YML = 'options/train_FeMaSR_HQ_pretrain_stage.yml'
@@ -1137,6 +1152,8 @@ RESUME_RTOL = 1e-3
 # autograd and the f32 convs add (cuDNN's FFT and Winograd convolutions,
 # its weight-gradient kernels, the resize and pooling backward passes)
 TRAIN_KERNEL_GROUPS = KERNEL_GROUPS[:7] + (
+    ('depthwise conv (the on-device degradation\'s blurs)',
+     ('conv_depthwise2d',)),
     ('cuDNN conv', ('conv', 'xmma', 'implicit', 'cudnn', 'fft', 'winograd',
                     'wgrad', 'dgrad')),) + KERNEL_GROUPS[8:]
 G_STEP_LOSS_RTOL, G_STEP_GRAD_TOL = 1e-5, 1e-4
@@ -1214,17 +1231,23 @@ def train_inputs(work: str) -> dict:
 
 def release_options(yml: str, name: str, inputs: dict, iters: int,
                     save_every: float, val_root: str = None,
-                    val_freq: float = None) -> dict:
+                    val_freq: float = None, as_shipped: bool = False) -> dict:
     """A release training YAML at its own widths, losses and optimizers,
-    on the seeded folder and weights, for `iters` iterations. With
-    val_root, its own val block (metrics, key metric, save_img) validates
-    on that folder's lq/ and gt/ every `val_freq` iterations and after the
-    loop; without, the val block is dropped."""
+    on the seeded folder and weights, for `iters` iterations. Its train set
+    becomes a PairedImageDataset of the seeded GT and LQ with 2 workers,
+    or with as_shipped stays the YAML's own (type, workers, degradation)
+    on the seeded GT. With val_root, its own val block (metrics, key
+    metric, save_img) validates on that folder's lq/ and gt/ every
+    `val_freq` iterations and after the loop; without, the val block is
+    dropped."""
     opt = load_yml(yml)
     val = opt.pop('val')
     data = opt['datasets']['train']
-    data.update(type='PairedImageDataset', dataroot_gt=inputs['gt'],
-                dataroot_lq=inputs['lq'], num_worker_per_gpu=2)
+    if as_shipped:
+        data.update(dataroot_gt=inputs['gt'])
+    else:
+        data.update(type='PairedImageDataset', dataroot_gt=inputs['gt'],
+                    dataroot_lq=inputs['lq'], num_worker_per_gpu=2)
     opt['datasets'] = {'train': data}
     if val_root is not None:
         opt['datasets']['val'] = {
@@ -1780,7 +1803,7 @@ def check_train_shapes(dev, results) -> None:
 def first_batch(opt: dict) -> dict:
     """A batch of the options' train set, as its loader makes it."""
     from femasr_torch.data import build_dataset
-    dopt = dict(opt['datasets']['train'], phase='train')
+    dopt = dict(opt['datasets']['train'], phase='train', scale=opt['scale'])
     data = build_dataset(dopt)
     return torch.utils.data.default_collate(
         [data[i] for i in range(dopt['batch_size_per_gpu'])])
@@ -1932,6 +1955,325 @@ def train_phase(dev, work: str) -> dict:
               f'{t["reps"]} synchronized warm iterations)', flush=True)
     del model
     torch.cuda.empty_cache()
+    out.update(bsrgan_phase(dev, work, inputs, {
+        stage: out[stage]['timing']['ms_per_iteration']
+        for stage in ('lq', 'hq')}))
+    return out
+
+
+# -- phase 6: the BSRGAN data (A9) ---------------------------------------------
+
+LQ_ONDEVICE_YML = 'options/train_FeMaSR_LQ_stage_ondevice.yml'
+# the degradation alone: calls timed and profiled (each seed one draw), and
+# DEGRADE_DRAWS draws held card against CPU: >= 99.9% of LQ pixels within
+# 1e-4, and the pixels beyond it in at most 1% of the final JPEG's 16x16
+# blocks. A near-tie of round(coeff / q) between two f32 summation orders
+# moves a whole JPEG block: up to ~300 pixels, ~1% of one draw's 8 x 64^2
+# LQ pixels, so the share is taken over 16 draws
+# the runs' one cut of their train set: TRAIN_IMAGES x 4 samples make one
+# epoch longer than either run (with the shipped ratio 1 the 16 seeded
+# images end an epoch every 2 iterations, and the loader starts its 8
+# workers anew each time)
+BSRGAN_ENLARGE = 4
+DEGRADE_SEEDS = tuple(range(100, 108))
+DEGRADE_DRAWS, DEGRADE_STAGE_DRAWS = 16, 4
+DEGRADE_AGREE, DEGRADE_TOL, DEGRADE_BLOCK_SHARE = 0.999, 1e-4, 0.01
+
+
+@contextlib.contextmanager
+def probe_iterations(dev, marks: list):
+    """Every FeMaSRModel.optimize_parameters inside the block appends
+    (entry, exit) host times, the exit after a synchronize: the loop's wall
+    per iteration is the distance between exits, the step's own the
+    distance from entry to exit, the rest the wait for the batch."""
+    from femasr_torch.train import FeMaSRModel
+    orig = FeMaSRModel.optimize_parameters
+
+    def optimize_parameters(self, current_iter=None):
+        t0 = time.perf_counter()
+        orig(self, current_iter)
+        sync(dev)
+        marks.append((t0, time.perf_counter()))
+    FeMaSRModel.optimize_parameters = optimize_parameters
+    try:
+        yield
+    finally:
+        FeMaSRModel.optimize_parameters = orig
+
+
+def loop_times(marks: list) -> dict:
+    """Per-iteration wall, step and wait (ms) of the loop after its first
+    iteration (worker start-up and first-use costs); the wait holds the
+    wait for the batch and the loop's logging and checkpoints, so the
+    medians are the steady state."""
+    exits = [b for _, b in marks]
+    wall = [(b - a) * 1e3 for a, b in zip(exits, exits[1:])]
+    step = [(b - a) * 1e3 for a, b in marks[1:]]
+    wait = [w - s for w, s in zip(wall, step)]
+    return dict(wall_ms=wall, step_ms=step, wait_ms=wait,
+                median_wall_ms=float(np.median(wall)),
+                median_wait_ms=float(np.median(wait)),
+                median_wait_share=float(np.median(
+                    [x / w for x, w in zip(wait, wall)])))
+
+
+def bsrgan_run(dev, work: str, opt: dict, stage: str) -> tuple:
+    """A run of train_cli with its train set as shipped: launches per
+    iteration checked, finite losses, peak memory, the loop's times."""
+    from femasr_torch import kernels
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    marks = []
+    t0 = time.perf_counter()
+    with probe_iterations(dev, marks):
+        model, records = run_train_cli(work, opt)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    iters = opt['train']['total_iter']
+    require([r['iter'] for r in records] == list(range(1, iters + 1)),
+            f'{opt["name"]} logged {[r["iter"] for r in records]}')
+    check_losses(records, opt['name'])
+    check_launches(counts, stage, iters)
+    return model, records, dict(
+        iterations=iters, seconds=seconds, launches=counts,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+        losses=records[-1], loop=loop_times(marks))
+
+
+def degradation_alone(dev, gt: torch.Tensor, iteration_ms: float,
+                      busy_ms: float) -> dict:
+    """The on-device degradation of a warm GT batch: host ms (synchronized)
+    and device ms (profiler) per call, launches per call, its share of the
+    on-device LQ iteration, no synchronizing op in a warm call, and the
+    card's LQ against the CPU's under the same draws."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from femasr_torch.ops import degradations as D
+
+    def gen(seed):
+        return torch.Generator(dev).manual_seed(seed)
+
+    def run_all():
+        for seed in DEGRADE_SEEDS:
+            D.degradation_bsrgan(gt, gen(seed), 4)
+    run_all()                   # builds every matrix these draws use
+    sync(dev)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        lq = D.degradation_bsrgan(gt, gen(DEGRADE_SEEDS[0]), 4)
+    except RuntimeError as e:
+        raise PhaseError(f'the degradation synchronized: {e}') from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(lq.shape == (gt.shape[0], 3, gt.shape[2] // 4, gt.shape[3] // 4)
+            and bool(torch.isfinite(lq).all()), f'degradation LQ {lq.shape}')
+    sync(dev)
+    t0 = time.perf_counter()
+    run_all()
+    sync(dev)
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(DEGRADE_SEEDS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_all()
+        sync(dev)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / len(
+        DEGRADE_SEEDS)
+    launches = len(kern) / len(DEGRADE_SEEDS)
+
+    # card against CPU, the same draws (kernels and noise fields handed in):
+    # the whole pipeline, then stage by stage with the CPU fed the card's
+    # input (only the JPEG stages may differ beyond 1e-4, in whole blocks)
+    gt_cpu = gt.cpu()
+    good = total = blocks = blocks_bad = 0
+    worst = 0.0
+    stage_worst, jpeg_touched, jpeg_blocks = {}, 0, 0
+    for seed in range(DEGRADE_DRAWS):
+        draws = D.draw_degradation(gen(seed), gt.shape, 4)
+        card = D.apply_degradation(gt, draws, 4).cpu()
+        ref = D.apply_degradation(gt_cpu, draws.to('cpu'), 4)
+        diff = (card - ref).abs().amax(dim=1)       # per pixel (B, h, w)
+        worst = max(worst, float(diff.max()))
+        good += int((diff <= DEGRADE_TOL).sum())
+        total += diff.numel()
+        n, bad = jpeg_blocks_touched(diff)
+        blocks += n
+        blocks_bad += bad
+        if seed >= DEGRADE_STAGE_DRAWS:
+            continue
+        x = gt
+        for (name, on_card), (_, on_cpu) in zip(
+                D.degradation_stages(draws, *gt.shape[-2:], 4),
+                D.degradation_stages(draws.to('cpu'), *gt.shape[-2:], 4)):
+            y = on_card(x)
+            d = (y.cpu() - on_cpu(x.cpu())).abs().amax(dim=1)
+            if 'jpeg' in name:
+                n, bad = jpeg_blocks_touched(d)
+                jpeg_blocks += n
+                jpeg_touched += bad
+            else:
+                stage_worst[name] = max(stage_worst.get(name, 0.0),
+                                        float(d.max()))
+            x = y
+    agree = good / total
+    out = dict(gt_batch=list(gt.shape), calls=len(DEGRADE_SEEDS),
+               host_ms=host_ms, device_ms=device_ms,
+               launches_per_call=launches, share_of_iteration=host_ms
+               / iteration_ms, device_share_of_busy=device_ms / busy_ms,
+               sync_free=True, card_vs_cpu=dict(
+                   draws=DEGRADE_DRAWS, pixels_within=agree,
+                   max_abs_diff=worst, jpeg_blocks_touched=blocks_bad,
+                   jpeg_blocks=blocks, stage_draws=DEGRADE_STAGE_DRAWS,
+                   stage_max_abs_diff=stage_worst,
+                   stage_jpeg_blocks_touched=jpeg_touched,
+                   stage_jpeg_blocks=jpeg_blocks))
+    print(f'[degrade] batch {list(gt.shape)} f32, {len(DEGRADE_SEEDS)} '
+          f'warm calls: {host_ms:.3f} ms per call on the host clock '
+          f'(synchronized), {device_ms:.3f} ms device time, {launches:.1f} '
+          f'launches per call; {100 * host_ms / iteration_ms:.2f}% of the '
+          f'on-device LQ iteration ({iteration_ms:.1f} ms), device '
+          f'{100 * device_ms / busy_ms:.2f}% of its busy time; no '
+          f'synchronizing op in a warm call (set_sync_debug_mode error)',
+          flush=True)
+    print(f'[degrade] card vs CPU, {DEGRADE_DRAWS} draws handed to both '
+          f'(kernels and noise fields included): {100 * agree:.4f}% of LQ '
+          f'pixels within {DEGRADE_TOL} (need {100 * DEGRADE_AGREE}%), max '
+          f'{worst:.3e}; pixels beyond it in {blocks_bad} of {blocks} final '
+          f'JPEG 16x16 blocks (at most {100 * DEGRADE_BLOCK_SHARE}%)',
+          flush=True)
+    print(f'[degrade] stage by stage, {DEGRADE_STAGE_DRAWS} draws, the CPU '
+          f'fed the card\'s input: max abs diff '
+          + ', '.join(f'{k} {v:.2e}' for k, v in stage_worst.items())
+          + f' (tol {DEGRADE_TOL}); the JPEG stages differ beyond it in '
+          f'{jpeg_touched} of {jpeg_blocks} 16x16 blocks', flush=True)
+    require(agree >= DEGRADE_AGREE and blocks_bad <= DEGRADE_BLOCK_SHARE
+            * blocks and max(stage_worst.values()) <= DEGRADE_TOL
+            and jpeg_touched <= DEGRADE_BLOCK_SHARE * jpeg_blocks,
+            f'degradation card vs CPU: {out["card_vs_cpu"]}')
+    return out
+
+
+def jpeg_blocks_touched(diff: torch.Tensor) -> tuple:
+    """(16x16 blocks, blocks holding a pixel beyond DEGRADE_TOL) of a
+    per-pixel difference (B, h, w), h and w multiples of 16."""
+    b, h, w = diff.shape
+    bad = (diff > DEGRADE_TOL).reshape(b, h // 16, 16, w // 16, 16)
+    return b * (h // 16) * (w // 16), int(bad.any(dim=4).any(dim=2).sum())
+
+
+def worker_pass(opt: dict) -> dict:
+    """ms per item of the train set on the host, as a loader worker makes
+    it (read, crop, the host BSRGAN degradation, flips), over one epoch."""
+    from femasr_torch.data import build_dataset
+    data = build_dataset(dict(opt['datasets']['train'], phase='train',
+                              scale=opt['scale']))
+    ms = []
+    for pos in range(len(data)):
+        t0 = time.perf_counter()
+        data[(pos, (opt['manual_seed'], 0, pos))]
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(items=len(ms), median_ms=float(np.median(ms)),
+                max_ms=float(np.max(ms)), ms=ms)
+
+
+def bsrgan_phase(dev, work: str, inputs: dict, paired_ms: dict) -> dict:
+    """The two training configurations that need the BSRGAN data, as
+    shipped: the LQ stage with on-device degradation (8 iterations, resumed
+    at 4), the degradation alone, and the HQ stage with the workers'
+    host degradation (4 iterations). Their ms per iteration are printed
+    beside `paired_ms`, the same stages' on the paired data."""
+    from femasr_torch import kernels
+    out = {}
+
+    # LQ stage, on-device degradation, its BSRGANTrainDataset and workers
+    opt = release_options(LQ_ONDEVICE_YML, 'smoke_lq_ondevice', inputs,
+                          LQ_ITERS, LQ_SAVE_AT, as_shipped=True)
+    opt['path'] = {'pretrain_network_hq': inputs['hq'],
+                   'pretrain_lpips': inputs['lpips'], 'strict_load': False}
+    data = opt['datasets']['train']
+    require(data['type'] == 'BSRGANTrainDataset'
+            and data['on_device_degradation'],
+            f'{LQ_ONDEVICE_YML}: train set {data}')
+    data['dataset_enlarge_ratio'] = BSRGAN_ENLARGE
+    model, full, run = bsrgan_run(dev, work, opt, 'lq')
+    require(model.degrade_on_device and model.cri_perceptual is not None
+            and model.use_dis, 'on-device LQ stage: degradation, LPIPS or '
+            'GAN loss off')
+    state = os.path.join(work, 'experiments', opt['name'], 'training_states',
+                         f'{LQ_SAVE_AT}.state')
+    with counting_off(*kernels.MODULES.values()):
+        resumed, again = run_train_cli(
+            work, opt, '--force_yml', f'path:resume_state={state}')
+    require([r['iter'] for r in again] == list(range(LQ_SAVE_AT + 1,
+                                                     LQ_ITERS + 1)),
+            f'resumed on-device run logged {[r["iter"] for r in again]}')
+    worst = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                for a, b in zip(full[LQ_SAVE_AT:], again)
+                for k in TRAIN_LOSSES)
+    print(f'[train] on-device LQ stage resumed at {LQ_SAVE_AT}: iterations '
+          f'{LQ_SAVE_AT + 1}-{LQ_ITERS} (their degradations replayed) within '
+          f'{worst:.2e} relative of the uninterrupted run (tol '
+          f'{RESUME_RTOL})', flush=True)
+    require(worst <= RESUME_RTOL, f'resumed on-device losses off by {worst}')
+    run['resume_worst_rel_diff'] = worst
+    del resumed
+    batch = first_batch(opt)
+    require('lq' not in batch, 'on-device train set shipped an LQ')
+    run['timing'] = time_iterations(model, batch, reps=3)
+    run['profile'] = profile_iteration(
+        model, batch, 'LQ on-device', run['timing']['ms_per_iteration'])
+    run['degradation'] = degradation_alone(
+        dev, batch['gt'].to(dev), run['timing']['ms_per_iteration'],
+        run['profile']['device_busy_ms'])
+    out['lq_ondevice'] = run
+    del model
+    torch.cuda.empty_cache()
+
+    # HQ stage as shipped: BSRGANTrainDataset, its 8 workers degrading on
+    # the host (the HQ stage trains on GT; the LQ is made and unused)
+    opt = release_options(HQ_YML, 'smoke_hq_bsrgan', inputs, HQ_ITERS, 1e9,
+                          as_shipped=True)
+    opt['path'] = {'pretrain_network_g': inputs['hq'],
+                   'pretrain_lpips': inputs['lpips'],
+                   'pretrain_vgg': inputs['vgg19'], 'strict_load': False}
+    data = opt['datasets']['train']
+    require(data['type'] == 'BSRGANTrainDataset'
+            and not data.get('on_device_degradation'),
+            f'{HQ_YML}: train set {data}')
+    data['dataset_enlarge_ratio'] = BSRGAN_ENLARGE
+    model, _, run = bsrgan_run(dev, work, opt, 'hq')
+    run['workers'] = int(data['num_worker_per_gpu'])
+    batch = first_batch(opt)
+    require(batch['lq'].shape[-1] * 4 == batch['gt'].shape[-1],
+            f'HQ batch lq {batch["lq"].shape} gt {batch["gt"].shape}')
+    run['timing'] = time_iterations(model, batch, reps=2)
+    run['profile'] = profile_iteration(
+        model, batch, 'HQ BSRGAN', run['timing']['ms_per_iteration'])
+    run['host_items'] = worker_pass(opt)
+    out['hq_bsrgan'] = run
+    del model
+    torch.cuda.empty_cache()
+
+    for name, stage in (('lq_ondevice', 'lq'), ('hq_bsrgan', 'hq')):
+        r = out[name]
+        t, loop = r['timing'], r['loop']
+        print(f'[train] {name}: {t["ms_per_iteration"]:.1f} ms per iteration '
+              f'(model, host clock over {t["reps"]} synchronized warm '
+              f'iterations; {stage.upper()} on paired data '
+              f'{paired_ms[stage]:.1f} ms), '
+              f'{t["images_per_s"]:.2f} images/s, idle share '
+              f'{r["profile"]["idle_share"]:.3f}; the loop, median after '
+              f'its first iteration: {loop["median_wall_ms"]:.1f} ms per '
+              f'iteration, {loop["median_wait_ms"]:.1f} ms of it waiting '
+              f'for the batch ({100 * loop["median_wait_share"]:.1f}%); '
+              f'peak max_memory_allocated '
+              f'{r["peak_memory_bytes"] / 2**30:.2f} GiB', flush=True)
+    h = out['hq_bsrgan']['host_items']
+    print(f'[train] hq_bsrgan: a train item on the host (read, crop, host '
+          f'degradation, flips) median {h["median_ms"]:.1f} ms, max '
+          f'{h["max_ms"]:.1f} ms over {h["items"]} items; '
+          f'{out["hq_bsrgan"]["workers"]} workers', flush=True)
     return out
 
 
@@ -2033,7 +2375,7 @@ def main() -> int:
             # the training path's own counts, per iteration
             launches_training={f'{stage}_per_iteration': train[stage][
                 'launches'][name] / train[stage]['iterations']
-                for stage in ('lq', 'hq')},
+                for stage in ('lq', 'hq', 'lq_ondevice', 'hq_bsrgan')},
             # the validation path's, per image, and test_cli's
             launches_validation=dict(
                 {f'{stage}_per_image': train[stage][

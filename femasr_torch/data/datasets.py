@@ -1,12 +1,14 @@
 """Data (counterpart of femasr_tpu/data/datasets.py, sampler.py and
-loader.py): PairedImageDataset for training and validation and
-SingleImageDataset (LQ only) for evaluation, through plain torch
-DataLoaders.
+loader.py): PairedImageDataset for training and validation,
+BSRGANTrainDataset (GT only, LQ synthesized by the BSRGAN degradation in
+the workers or on the device) for training and SingleImageDataset (LQ only)
+for evaluation, through plain torch DataLoaders.
 
 Randomness is explicit and independent of the worker count: the sampler
-(`EpochSampler`) yields (index, seed) items, and the dataset draws its crop
-and flips from numpy.random.default_rng(seed), the seed being (manual_seed,
-epoch, position in the epoch). The order of an epoch is a permutation from
+(`EpochSampler`) yields (index, seed) items, and the dataset draws its
+crop, flips and (BSRGANTrainDataset) degradation from
+numpy.random.default_rng(seed), the seed being (manual_seed, epoch,
+position in the epoch). The order of an epoch is a permutation from
 (manual_seed, epoch). So a run resumed at iteration k sees the batches the
 uninterrupted run saw (`EpochSampler.start`).
 """
@@ -22,7 +24,8 @@ from torch.utils.data import DataLoader, Dataset, Sampler
 
 from ..utils.matlab_functions import rgb2ycbcr
 from .data_util import make_dataset, paths_from_folder
-from .transforms import augment, paired_random_crop
+from .degradations import degradation_bsrgan
+from .transforms import augment, paired_random_crop, random_crop
 
 
 def read_rgb(path: str) -> np.ndarray:
@@ -130,13 +133,45 @@ class SingleImageDataset(Dataset):
 
 
 class BSRGANTrainDataset(Dataset):
-    """HQ-only data with on-the-fly BSRGAN degradation: needs the
-    degradations (ROADMAP A9)."""
+    """GT images of a folder; the LQ is synthesized by the BSRGAN
+    degradation. In the train phase: use_resize_crop (a random cubic
+    rescale to a side in [gt_size, the image's]), a gt_size crop, then
+    use_flip and use_rot. With on_device_degradation the item holds the
+    GT only, and the trainer degrades the batch on the device; else the
+    host pipeline (data/degradations.py) synthesizes the x`scale` LQ here.
+    Items are dicts of (3, H, W) float32 tensors in [0, 1] and the path
+    (as lq_path and gt_path)."""
 
     def __init__(self, opt: dict):
-        raise NotImplementedError(
-            'BSRGANTrainDataset needs the BSRGAN degradations, not ported '
-            'yet (ROADMAP A9); train on a PairedImageDataset')
+        self.opt = opt
+        self.gt_paths = _folder(opt['dataroot_gt'])
+
+    def __len__(self) -> int:
+        return len(self.gt_paths)
+
+    def __getitem__(self, item) -> Dict:
+        index, seed = item if isinstance(item, tuple) else (item, (item,))
+        rng = np.random.default_rng(seed)
+        gt_path = self.gt_paths[index]
+        img_gt = read_rgb(gt_path)
+        gt_size = self.opt['gt_size']
+        flip, rot = self.opt.get('use_flip', False), self.opt.get('use_rot',
+                                                                  False)
+        if self.opt['phase'] == 'train':
+            if self.opt.get('use_resize_crop', False):
+                size = int(rng.integers(gt_size, img_gt.shape[0] + 1))
+                img_gt = random_resize(img_gt, size / img_gt.shape[0])
+            img_gt = random_crop(img_gt, gt_size, rng)
+        item = {'lq_path': gt_path, 'gt_path': gt_path}
+        if self.opt.get('on_device_degradation', False):
+            item['gt'] = _chw(augment(img_gt, flip, rot, rng))
+            return item
+        img_lq, img_gt = degradation_bsrgan(
+            img_gt, rng, sf=self.opt['scale'],
+            lq_patchsize=gt_size // self.opt['scale'], use_crop=False)
+        img_gt, img_lq = augment([img_gt, img_lq], flip, rot, rng)
+        item.update(lq=_chw(img_lq), gt=_chw(img_gt))
+        return item
 
 
 DATASETS = {'PairedImageDataset': PairedImageDataset,

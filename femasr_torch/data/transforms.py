@@ -1,6 +1,7 @@
 """Training image transforms (counterpart of femasr_tpu/data/transforms.py):
-matching random crops of GT/LQ pairs and random flips / rotations, on HWC
-numpy images, each drawing from an explicit numpy.random.Generator."""
+random crops of one image or of matching GT/LQ pairs and random flips /
+rotations, on HWC numpy images, each drawing from an explicit
+numpy.random.Generator."""
 
 from __future__ import annotations
 
@@ -9,6 +10,15 @@ from typing import List, Sequence, Union
 import numpy as np
 
 Images = Union[np.ndarray, List[np.ndarray]]
+
+
+def random_crop(img: np.ndarray, out_size: int,
+                rng: np.random.Generator) -> np.ndarray:
+    """An out_size x out_size crop at a random place."""
+    h, w = img.shape[:2]
+    top = int(rng.integers(0, h - out_size + 1))
+    left = int(rng.integers(0, w - out_size + 1))
+    return img[top:top + out_size, left:left + out_size, ...]
 
 
 def paired_random_crop(img_gts: Images, img_lqs: Images, gt_patch_size: int,

@@ -1,6 +1,12 @@
 """FeMaSR GAN trainer (counterpart of femasr_tpu/train/femasr_model.py).
 
 One iteration, in the JAX step's order and with its gates:
+  0. LQ stage with `datasets.train.on_device_degradation`: the LQ batch is
+     synthesized from the GT batch on the device (the BSRGAN degradation,
+     ops/degradations.py), the whole batch before any chunking, with a
+     generator seeded from (manual_seed, step): no state of its own, so a
+     resumed run replays the degradations of the uninterrupted one. The
+     HQ stage ignores the flag.
   1. LQ stage: the frozen HQ prior reconstructs the GT batch under
      torch.no_grad() and gives the GT code indices (its conv3 tail and its
      codebook search run as kernels).
@@ -37,6 +43,7 @@ from collections import OrderedDict
 from os import path as osp
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..losses import LPIPSLoss, PerceptualLoss, build_loss
@@ -48,6 +55,7 @@ from ..models.femasr_arch import FeMaSRNet, init_weights
 from ..models.inference import SRInferencer, resolve_device
 from ..models.vgg_arch import (VGGFeatureExtractor, convert_vgg_checkpoint,
                                vgg_truncated_state)
+from ..ops.degradations import degradation_bsrgan
 from ..ops.quantize import codebook_perplexity
 from ..utils.img_util import imwrite, round_8bit
 from ..utils.logger import get_root_logger
@@ -200,6 +208,9 @@ class FeMaSRModel(BaseModel):
         self.cri_gan = build_loss(train_opt['gan_opt']).to(self.device)
         self.use_dis = train_opt['gan_opt']['loss_weight'] != 0
         self.fixed_disc = train_opt.get('fixed_disc', False)
+        train_set = (opt.get('datasets') or {}).get('train') or {}
+        self.degrade_on_device = self.LQ_stage and bool(
+            train_set.get('on_device_degradation'))
         self.grad_accum_chunks = max(int(train_opt.get('grad_accum_chunks',
                                                        1) or 1), 1)
         # read but unused, as in the reference and the JAX package
@@ -360,7 +371,17 @@ class FeMaSRModel(BaseModel):
         for group in optimizer.param_groups:
             group['lr'] = lr
 
+    def degradation_generator(self) -> torch.Generator:
+        """The generator of this step's on-device degradation, on the
+        device, seeded from (manual_seed, step)."""
+        seed = np.random.SeedSequence((self.seed, self.step)).generate_state(
+            1, np.uint64)[0]
+        return torch.Generator(self.device).manual_seed(int(seed))
+
     def optimize_parameters(self, current_iter: Optional[int] = None) -> None:
+        if self.degrade_on_device:
+            self.lq = degradation_bsrgan(self.gt, self.degradation_generator(),
+                                         sf=self.scale)
         gate = self.gan_gate()
         self.opt_g.zero_grad(set_to_none=True)
         total, loss_dict, output, idx, _ = self.g_backward(self.lq, self.gt)

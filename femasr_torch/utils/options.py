@@ -128,10 +128,6 @@ def check_port_options(opt: dict) -> None:
         if nopt.get('use_checkpoint'):
             refuse(f'{net}.use_checkpoint (rematerialization) is not ported '
                    'yet (a later slice)')
-    for phase, dopt in (opt.get('datasets') or {}).items():
-        if (dopt or {}).get('on_device_degradation'):
-            refuse(f'datasets.{phase}.on_device_degradation needs the '
-                   'degradations, not ported yet (ROADMAP A9)')
     if opt.get('dist'):
         refuse('dist (training and validation across processes) is not '
                'ported yet (ROADMAP A11, multi-GPU)')

@@ -437,3 +437,47 @@ def test_validation_through_kernels_matches_plain(gen, tmp_path):
         assert (out_k - out_p).abs().mean().item() <= 1e-4
     assert abs(mk['psnr'] - mp['psnr']) <= 0.01
     assert abs(mk['ssim'] - mp['ssim']) <= 1e-4
+
+
+def test_degradation_on_card_matches_cpu_without_sync(gen):
+    """The on-device BSRGAN degradation of a batch of 8 smooth 256 px GT
+    crops, stage by stage: a warm call runs under
+    set_sync_debug_mode('error'); under the same draws (kernels and noise
+    fields handed to both), each stage on the card against the same stage
+    on the CPU fed the card's input: the blurs, resizes and noise within
+    1e-4, each JPEG's differences confined to its 16x16 blocks, in at most
+    1% of them (a near-tie of round(coeff / q) between two f32 summation
+    orders moves a whole block)."""
+    import torch.nn.functional as F
+
+    from femasr_torch.ops import degradations as D
+    coarse = torch.rand(8, 3, 32, 32, generator=gen)
+    gt = F.interpolate(coarse, size=(256, 256), mode='bilinear',
+                       align_corners=False).cuda()
+    touched = blocks = 0
+    for seed in range(8):
+        draws = D.draw_degradation(
+            torch.Generator('cuda').manual_seed(seed), gt.shape, 4)
+        lq = D.apply_degradation(gt, draws, 4)
+        torch.cuda.set_sync_debug_mode('error')
+        try:        # warm: every matrix of these draws is on the card
+            again = D.apply_degradation(gt, draws, 4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(lq, again) and lq.shape == (8, 3, 64, 64)
+        x = gt
+        for (name, card), (_, cpu) in zip(
+                D.degradation_stages(draws, 256, 256, 4),
+                D.degradation_stages(draws.to('cpu'), 256, 256, 4)):
+            y = card(x)
+            diff = (y.cpu() - cpu(x.cpu())).abs().amax(dim=1)
+            if 'jpeg' not in name:
+                assert float(diff.max()) <= 1e-4, (seed, name)
+            else:
+                b, h, w = diff.shape
+                bad = (diff > 1e-4).reshape(b, h // 16, 16, w // 16, 16)
+                touched += int(bad.any(dim=4).any(dim=2).sum())
+                blocks += b * (h // 16) * (w // 16)
+            x = y
+        assert torch.equal(x, lq)
+    assert touched <= 0.01 * blocks, (touched, blocks)

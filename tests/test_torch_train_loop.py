@@ -171,10 +171,8 @@ def test_generator_ema_tracks_the_weights(folder):
     (lambda o: o['network_g'].update(use_checkpoint=True), 'later slice'),
     (lambda o: o['network_g'].update(ws2d_tail=True), 'ws2d_tail'),
     (lambda o: o.update(dist=True, val={'val_freq': 2}), 'A11'),
-    (lambda o: o['datasets']['train'].update(on_device_degradation=True),
-     'A9'),
 ], ids=['chain_steps', 'flat_optimizer', 'attn_pack', 'model_parallel',
-        'bf16', 'use_checkpoint', 'serving_knob', 'val', 'on_device'])
+        'bf16', 'use_checkpoint', 'serving_knob', 'val'])
 def test_options_the_port_does_not_carry_are_refused(folder, edit, match):
     opt = options(folder)
     edit(opt)
@@ -183,7 +181,10 @@ def test_options_the_port_does_not_carry_are_refused(folder, edit, match):
 
 
 def test_bsrgan_dataset_needs_the_degradations(folder):
+    # the degradations are ported: the dataset synthesizes the x4 LQ
     opt = options(folder)['datasets']['train']
-    opt.update(type='BSRGANTrainDataset', phase='train')
-    with pytest.raises(NotImplementedError, match='A9'):
-        build_dataset(opt)
+    opt.update(type='BSRGANTrainDataset', phase='train', scale=4)
+    item = build_dataset(opt)[(1, (0, 0, 1))]
+    assert item['gt'].shape == (3, 64, 64)
+    assert item['lq'].shape == (3, 16, 16)
+    assert 0 <= float(item['lq'].min()) and float(item['lq'].max()) <= 1
