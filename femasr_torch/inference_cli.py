@@ -74,6 +74,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     from .models.inference import load_inferencer
     from .utils.img_util import imread_rgb, imwrite, rgb_to_bgr_uint8, scandir
+    from .utils.misc import disable_tf32
+
+    disable_tf32()
 
     dtype = torch.bfloat16 if args.precision == 'bf16' else torch.float32
     sr = load_inferencer(args.weight, scale_factor=args.out_scale,

@@ -9,6 +9,12 @@ iteration runs only under `update=True`; `u` and `v` are buffers
 (`weight_u`, `weight_v`, beside `weight_orig`: the reference's
 state-dict keys), warm-started at construction by `init_power_iters`
 iterations from a seeded random u, as the JAX init does.
+
+In bfloat16 (`dtype`, the JAX module's), as the JAX discriminator rounds:
+the input is cast to bf16; the power iteration and sigma stay f32 and
+weight / sigma is rounded to bf16; every conv runs in bf16 with its bias
+added after it in bf16; the leaky ReLUs, skip adds and bilinear upsamples
+run in bf16. Parameters stay f32.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.layers import Conv2d
 
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -70,21 +78,42 @@ class SpectralConv2d(nn.Module):
         # copies: a later update must not change what backward reads
         u, v = self.weight_u.clone(), self.weight_v.clone()
         sigma = torch.dot(u, self._w_mat() @ v)
-        return F.conv2d(x, self.weight_orig / sigma, None, self.stride,
-                        self.padding)
+        return F.conv2d(x, (self.weight_orig / sigma).to(x.dtype), None,
+                        self.stride, self.padding)
+
+
+def leaky_relu(y: torch.Tensor) -> torch.Tensor:
+    """jax.nn.leaky_relu(y, 0.2), whose weakly typed 0.2 takes y's dtype:
+    F.leaky_relu with the slope rounded to that dtype (given 0.2 itself it
+    would multiply a bf16 tensor by the f32 0.2)."""
+    return F.leaky_relu(y, float(torch.tensor(0.2, dtype=y.dtype)))
+
+
+def upsample_bilinear(y: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear upsample, half-pixel centers (align_corners=False), as
+    jax.image.resize contracts it: along W, then along H, each rounded to
+    y's dtype (a 2-D F.interpolate rounds once; in bf16 26% of its
+    outputs differ from JAX's)."""
+    y = F.interpolate(y, scale_factor=(1, 2), mode='bilinear',
+                      align_corners=False)
+    return F.interpolate(y, scale_factor=(2, 1), mode='bilinear',
+                         align_corners=False)
 
 
 class UNetDiscriminatorSN(nn.Module):
     """3 SN-conv downs, 3 bilinear-up SN convs with skips, 2 more SN convs,
     a 1-channel output map. forward(x, update): update=True runs one power
-    iteration in every SN conv first (the discriminator step)."""
+    iteration in every SN conv first (the discriminator step). The input
+    is cast to `dtype` (float32 or bfloat16), the compute dtype."""
 
     def __init__(self, num_in_ch: int = 3, num_feat: int = 64,
-                 skip_connection: bool = True):
+                 skip_connection: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         nf = num_feat
         self.skip_connection = skip_connection
-        self.conv0 = nn.Conv2d(num_in_ch, nf, 3, 1, 1)
+        self.dtype = dtype
+        self.conv0 = Conv2d(num_in_ch, nf, 3, 1, 1)
         self.conv1 = SpectralConv2d(nf, nf * 2, 4, 2, 1)
         self.conv2 = SpectralConv2d(nf * 2, nf * 4, 4, 2, 1)
         self.conv3 = SpectralConv2d(nf * 4, nf * 8, 4, 2, 1)
@@ -93,19 +122,14 @@ class UNetDiscriminatorSN(nn.Module):
         self.conv6 = SpectralConv2d(nf * 2, nf, 3, 1, 1)
         self.conv7 = SpectralConv2d(nf, nf, 3, 1, 1)
         self.conv8 = SpectralConv2d(nf, nf, 3, 1, 1)
-        self.conv9 = nn.Conv2d(nf, 1, 3, 1, 1)
+        self.conv9 = Conv2d(nf, 1, 3, 1, 1)
 
     def spectral_convs(self):
         return [getattr(self, f'conv{i}') for i in range(1, 9)]
 
     def forward(self, x: torch.Tensor, update: bool = False) -> torch.Tensor:
-        def lrelu(y):
-            return F.leaky_relu(y, 0.2)
-
-        def up(y):
-            return F.interpolate(y, scale_factor=2, mode='bilinear',
-                                 align_corners=False)
-
+        lrelu, up = leaky_relu, upsample_bilinear
+        x = x.to(self.dtype)
         x0 = lrelu(self.conv0(x))
         x1 = lrelu(self.conv1(x0, update))
         x2 = lrelu(self.conv2(x1, update))

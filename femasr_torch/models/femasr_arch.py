@@ -7,10 +7,16 @@ the placement of the JAX serving tail; every other conv is F.conv2d.
 Parameters stay float32; the compute dtype is that of the input.
 
 Training runs the same forward with differentiable=True: the conv3 tail
-and the Swin attention core take their kernels' plain versions (the same
-functions under autograd; the kernels have no backward, as the JAX
+takes its kernel's plain version in f32 and the plain layers in bf16 (they
+round where the JAX trainer's layers round), the Swin attention core its
+kernel's plain version and the bf16 activations their op-by-op twin (the
+same functions under autograd; the kernels have no backward, as the JAX
 package's Pallas kernels have no VJP), while the codebook search stays a
-kernel on the detached tokens.
+kernel on the detached tokens. In
+bfloat16 the parameters stay float32 and every layer computes in the
+input's dtype, rounding where the JAX layers round; the loss algebra is
+float32 (ops/quantize.py). use_checkpoint recomputes the Swin blocks'
+activations in the backward (ops/swin.py BasicLayer).
 
 The int8 serving lane (int8_tail, int8_levels, int8_enc_up, int8_swin,
 int8_mlp, as in the JAX FeMaSRNet) swaps convs and linears for their w8a8
@@ -27,7 +33,7 @@ from torch import nn
 
 from ..kernels.conv3 import conv3, conv3_plain
 from ..ops.layers import (CombineQuantBlock, Conv2d, Conv2dInt8, ResBlock,
-                          Upsample)
+                          Upsample, sequential)
 from ..ops.quantize import VectorQuantizer
 from ..ops.swin import SwinLayers
 
@@ -86,9 +92,7 @@ class DecoderBlock(nn.Module):
                 differentiable: bool = False) -> torch.Tensor:
         if self.kernel:  # upsample and conv then emit channels_last
             x = x.contiguous(memory_format=torch.channels_last)
-        for m in self.block:
-            x = m(x, differentiable) if isinstance(m, ResBlock) else m(x)
-        return x
+        return sequential(self.block, x, differentiable)
 
 
 class MultiScaleEncoder(nn.Module):
@@ -97,7 +101,8 @@ class MultiScaleEncoder(nn.Module):
     def __init__(self, in_channel: int, max_depth: int, input_res: int = 256,
                  norm_type: str = 'gn', act_type: str = 'silu',
                  lq_stage: bool = True, int8_enc_up: bool = False,
-                 int8_swin: bool = False, int8_mlp: bool = False):
+                 int8_swin: bool = False, int8_mlp: bool = False,
+                 use_checkpoint: bool = False):
         super().__init__()
         ksz = 4  # k=4, pad 1: shrinks H and W by 1 (reference quirk)
         ch = CHANNEL_QUERY_DICT[input_res]
@@ -111,7 +116,8 @@ class MultiScaleEncoder(nn.Module):
             res //= 2
         if lq_stage:
             blocks.append(SwinLayers(int8_linears=int8_swin,
-                                     int8_mlp=int8_mlp))
+                                     int8_mlp=int8_mlp,
+                                     use_checkpoint=use_checkpoint))
             for _ in range(2):
                 out_ch = CHANNEL_QUERY_DICT[res * 2]
                 blocks.append(EncoderUpBlock(ch, out_ch, norm_type, act_type,
@@ -125,7 +131,8 @@ class MultiScaleEncoder(nn.Module):
         x = self.in_conv(x)
         outputs = []
         for m in self.blocks:
-            x = m(x, differentiable) if isinstance(m, SwinLayers) else m(x)
+            x = (m(x, differentiable) if isinstance(m, SwinLayers)
+                 else sequential(m, x, differentiable))
             outputs.append(x)
         return outputs
 
@@ -143,6 +150,10 @@ class FeMaSRNet(nn.Module):
     the conv3-kernel tail); int8_enc_up the LQ encoder's two up blocks;
     int8_swin the Swin qkv / proj / MLP linears (per-tensor); int8_mlp the
     Swin MLPs as the per-token int8 chain.
+
+    use_checkpoint: the LQ encoder's Swin blocks recompute their
+    activations in the training backward (JAX: nn.remat); serving and
+    no_grad forwards never checkpoint.
     """
 
     def __init__(self, codebook_params: Sequence[Sequence[int]],
@@ -152,7 +163,7 @@ class FeMaSRNet(nn.Module):
                  use_quantize: bool = True, use_semantic_loss: bool = False,
                  int8_tail: bool = False, int8_levels: int = 1,
                  int8_enc_up: bool = False, int8_swin: bool = False,
-                 int8_mlp: bool = False):
+                 int8_mlp: bool = False, use_checkpoint: bool = False):
         super().__init__()
         params = [[int(v) for v in p] for p in codebook_params]
         self.codebook_scale = [p[0] for p in params]
@@ -168,7 +179,8 @@ class FeMaSRNet(nn.Module):
 
         self.multiscale_encoder = MultiScaleEncoder(
             in_channel, encode_depth, gt_resolution // self.scale_factor,
-            norm_type, act_type, LQ_stage, int8_enc_up, int8_swin, int8_mlp)
+            norm_type, act_type, LQ_stage, int8_enc_up, int8_swin, int8_mlp,
+            use_checkpoint)
 
         # without int8_tail the last decoder level and out_conv run through
         # the conv3 kernel (gn + silu: its prologue is the GroupNorm affine
@@ -217,7 +229,7 @@ class FeMaSRNet(nn.Module):
 
     def _out_conv(self, x: torch.Tensor,
                   differentiable: bool = False) -> torch.Tensor:
-        if self.int8_tail:
+        if self.int8_tail or (differentiable and x.dtype != torch.float32):
             return self.out_conv(x)
         conv = conv3_plain if differentiable else conv3
         return conv(x.contiguous(memory_format=torch.channels_last),

@@ -4,8 +4,11 @@
 Named-layer taps on VGG11/13/16/19, optional ImageNet input
 normalization, truncated at the deepest requested layer. Weights load from
 torchvision state dicts (`features.N.*`) with `convert_vgg_checkpoint`; no
-torchvision needed. The _bn variants are not ported (no configuration uses
-them).
+torchvision needed. The compute dtype is the input's (the semantic loss
+runs it in the generator's dtype, as the JAX trainer does): in bfloat16
+the normalization constants, the conv weights and the biases are rounded
+to bf16 and each op rounds, as flax's bf16 convs do. The _bn variants are
+not ported (no configuration uses them).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Dict, List, Mapping, Sequence
 
 import torch
 from torch import nn
+
+from ..ops.layers import Conv2d
 
 VGG_CFGS = {
     'vgg11': [64, 'M', 128, 'M', 256, 256, 'M', 512, 512, 'M', 512, 512, 'M'],
@@ -67,7 +72,7 @@ class VGGFeatureExtractor(nn.Module):
         for name in names[:last + 1]:
             if name.startswith('conv'):
                 out = next(widths)
-                layers[name] = nn.Conv2d(ch, out, 3, 1, 1)
+                layers[name] = Conv2d(ch, out, 3, 1, 1)
                 ch = out
             elif name.startswith('relu'):
                 layers[name] = nn.ReLU()
@@ -83,7 +88,7 @@ class VGGFeatureExtractor(nn.Module):
         if self.range_norm:
             x = (x + 1.0) / 2.0
         if self.use_input_norm:
-            x = (x - self.mean) / self.std
+            x = (x - self.mean.to(x.dtype)) / self.std.to(x.dtype)
         out = {}
         wanted = set(self.layer_name_list)
         for name, layer in self.vgg_net.named_children():

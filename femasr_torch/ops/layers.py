@@ -22,7 +22,7 @@ from torch import nn
 from ..kernels import matmul_w8a8 as mm
 from ..kernels import matmul_w8a8_q as mmq
 from ..kernels._w8a8 import quantize, scale_of
-from ..kernels.act_bf16 import act_bf16
+from ..kernels.act_bf16 import act_bf16, act_bf16_plain
 from ..kernels.conv3 import conv3, conv3_plain
 from ..kernels.conv3_w8a8 import conv3_w8a8
 from ..kernels.matmul_w8a8 import matmul_w8a8
@@ -189,12 +189,15 @@ class NormLayer(nn.Module):
         return self.norm(x)
 
 
-def silu_gelu(x: torch.Tensor, act: str) -> torch.Tensor:
+def silu_gelu(x: torch.Tensor, act: str,
+              differentiable: bool = False) -> torch.Tensor:
     """SiLU or GELU as the JAX package computes them: in bfloat16, its op
-    sequences rounded after every op (the act_bf16 kernel on the card);
-    otherwise F.silu, and GELU exact (erf) in float32, tanh elsewhere."""
+    sequences rounded after every op (the act_bf16 kernel on the card, or
+    with differentiable=True its op-by-op twin under autograd: the kernel
+    has no backward); otherwise F.silu, and GELU exact (erf) in float32,
+    tanh elsewhere."""
     if x.dtype == torch.bfloat16:
-        return act_bf16(x, act)
+        return (act_bf16_plain if differentiable else act_bf16)(x, act)
     if act == 'silu':
         return F.silu(x)
     return F.gelu(x, approximate='none' if x.dtype == torch.float32
@@ -213,7 +216,8 @@ class ActLayer(nn.Module):
         if at == 'prelu':
             self.func = nn.PReLU(channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
         at = self.act_type
         if at == 'relu':
             return F.relu(x)
@@ -222,7 +226,7 @@ class ActLayer(nn.Module):
         if at == 'prelu':
             return F.prelu(x, self.func.weight.to(x.dtype))
         if at in ('silu', 'gelu'):
-            return silu_gelu(x, at)
+            return silu_gelu(x, at, differentiable)
         return x
 
 
@@ -262,11 +266,19 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 differentiable: bool = False) -> torch.Tensor:
-        """differentiable: a kernel=True block takes the conv3 kernel's
-        plain version (the same function, under autograd) instead of the
-        kernel, which has no backward."""
-        if not self.kernel:
-            return self.conv(x) + x
+        """differentiable: under autograd (the conv3 and act_bf16 kernels
+        have no backward). A kernel=True block takes the conv3 kernel's
+        plain version in float32, where it is the layers' function in fewer
+        passes, and the plain layers in bfloat16, which round where the
+        JAX trainer's layers round (the plain version rounds where the
+        kernel does); bf16 activations take act_bf16's op-by-op twin."""
+        if not self.kernel or (differentiable
+                               and x.dtype != torch.float32):
+            res = x
+            for m in self.conv:
+                res = (m(res, differentiable) if isinstance(m, ActLayer)
+                       else m(res))
+            return res + x
         conv = conv3_plain if differentiable else conv3
         x = x.contiguous(memory_format=torch.channels_last)
         norm1, conv1 = self.conv[0].norm, self.conv[2]
@@ -278,6 +290,15 @@ class ResBlock(nn.Module):
         res = conv(res, conv2.weight, conv2.bias, scale=a, shift=b,
                    pre_act='silu')
         return res + x
+
+
+def sequential(modules: nn.Module, x: torch.Tensor,
+               differentiable: bool = False) -> torch.Tensor:
+    """Run the modules of an nn.Sequential in order, handing
+    `differentiable` to its ResBlocks."""
+    for m in modules:
+        x = m(x, differentiable) if isinstance(m, ResBlock) else m(x)
+    return x
 
 
 class Upsample(nn.Module):

@@ -6,7 +6,8 @@ blocks.{k}.attn.qkv.weight`, ...). The attention core runs through the
 window-attention kernel; the qkv / proj / MLP linears are nn.Linear, or
 in the int8 serving lane LinearInt8: per-tensor w8a8 (int8_linears: qkv,
 proj and the MLP) and the per-token int8 chain for the MLP (int8_mlp,
-which wins over int8_linears for the MLP).
+which wins over int8_linears for the MLP). use_checkpoint recomputes each
+block's activations in the training backward (BasicLayer).
 The relative-position index and the shift mask are derived, not learned:
 they are non-persistent buffers, so the state dict holds parameters only.
 """
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.window_attention import (window_attention,
                                         window_attention_plain)
@@ -120,11 +122,14 @@ class Mlp(nn.Module):
         self.fc1 = lin(in_features, hidden_features)
         self.fc2 = lin(hidden_features, in_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
+        """differentiable: bf16 GELU by the act_bf16 kernel's op-by-op
+        twin, under autograd."""
         if self.chain:
             h = self.fc1(quantize_rows(x), act='gelu', out_int8=True)
             return self.fc2(h, out_dtype=x.dtype)
-        return self.fc2(silu_gelu(self.fc1(x), 'gelu'))
+        return self.fc2(silu_gelu(self.fc1(x), 'gelu', differentiable))
 
 
 class WindowAttention(nn.Module):
@@ -201,16 +206,23 @@ class SwinTransformerBlock(nn.Module):
         if ss > 0:
             y = torch.roll(y, (ss, ss), dims=(1, 2))
         x = x + y
-        return x + self.mlp(self.norm2(x))
+        return x + self.mlp(self.norm2(x), differentiable)
 
 
 class BasicLayer(nn.Module):
-    """depth x SwinTransformerBlock with alternating shift 0 / ws // 2."""
+    """depth x SwinTransformerBlock with alternating shift 0 / ws // 2.
+
+    use_checkpoint: in a differentiable forward under grad mode each block
+    runs under torch.utils.checkpoint (its activations are recomputed in
+    the backward instead of kept: the JAX package's nn.remat of the
+    block). Serving never checkpoints."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
-                 int8_linears: bool = False, int8_mlp: bool = False):
+                 int8_linears: bool = False, int8_mlp: bool = False,
+                 use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, input_resolution, num_heads,
                                  window_size,
@@ -220,8 +232,13 @@ class BasicLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 differentiable: bool = False) -> torch.Tensor:
+        remat = (self.use_checkpoint and differentiable
+                 and torch.is_grad_enabled())
         for blk in self.blocks:
-            x = blk(x, differentiable)
+            if remat:
+                x = checkpoint(blk, x, differentiable, use_reentrant=False)
+            else:
+                x = blk(x, differentiable)
         return x
 
 
@@ -231,11 +248,13 @@ class RSTB(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
-                 int8_linears: bool = False, int8_mlp: bool = False):
+                 int8_linears: bool = False, int8_mlp: bool = False,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.residual_group = BasicLayer(dim, input_resolution, depth,
                                          num_heads, window_size,
-                                         int8_linears, int8_mlp)
+                                         int8_linears, int8_mlp,
+                                         use_checkpoint)
         self.conv = Conv2d(dim, dim, 3, 1, 1)
 
     def forward(self, x: torch.Tensor,
@@ -251,11 +270,11 @@ class SwinLayers(nn.Module):
     def __init__(self, input_resolution: Tuple[int, int] = (32, 32),
                  embed_dim: int = 256, blk_depth: int = 6, num_heads: int = 8,
                  window_size: int = 8, int8_linears: bool = False,
-                 int8_mlp: bool = False):
+                 int8_mlp: bool = False, use_checkpoint: bool = False):
         super().__init__()
         self.swin_blks = nn.ModuleList([
             RSTB(embed_dim, input_resolution, blk_depth, num_heads,
-                 window_size, int8_linears, int8_mlp)
+                 window_size, int8_linears, int8_mlp, use_checkpoint)
             for _ in range(4)])
 
     def forward(self, x: torch.Tensor,

@@ -28,12 +28,22 @@ One iteration, in the JAX step's order and with its gates:
   5. The EMA of the generator's parameters (ema_decay > 0).
 The learning rate of update k is the schedule at step k.
 
+Precision (`network_g.dtype`, `network_d.dtype`: float32 or bfloat16, as
+the JAX trainer): the trainee computes in its dtype from the input cast
+to it; the frozen prior runs in network_g's dtype with the f32 search,
+the semantic loss's VGG19 too (on GT cast to it); the discriminator casts
+its input to its own dtype. The losses take the f32 output. Parameters,
+Adam moments, the EMA and every checkpoint stay float32, so a bf16 run
+saves the same .pth as an f32 one. `network_g.use_checkpoint`
+recomputes the Swin blocks' activations in the backward.
+
 Validation (`validation`, every `val.val_freq` iterations) and offline
 evaluation (test_cli) serve the trainee, or with ema_decay > 0 one eval
 copy holding the EMA weights, through SRInferencer's live-module form
-(no_grad, eval mode, the conv3 tail, attention and search as kernels):
-whole images below 8000^2 px, tiles above. The metrics see the output's
-8-bit levels in RGB, as tensor2img writes them, against the GT as read.
+(no_grad, eval mode, the conv3 tail, attention and search as kernels) in
+network_g's dtype: whole images below 8000^2 px, tiles above. The
+metrics see the output's 8-bit levels in RGB, as tensor2img writes them,
+against the GT as read.
 """
 
 from __future__ import annotations
@@ -65,7 +75,14 @@ from .lr_scheduler import build_schedule
 # network_g option keys that configure the trainer or the search, not
 # FeMaSRNet (the port's search is always the f32 kernel)
 _TRAINER_KEYS = ('type', 'frozen_module_keywords', 'vq_backend',
-                 'vq_index_f32', 'dtype', 'use_checkpoint')
+                 'vq_index_f32', 'dtype')
+DTYPES = {None: torch.float32, 'float32': torch.float32,
+          'bfloat16': torch.bfloat16}
+
+
+def compute_dtype(opt: Mapping) -> torch.dtype:
+    """The compute dtype of a network_g / network_d options dict."""
+    return DTYPES[opt.get('dtype')]
 
 
 def build_generator(opt: Mapping) -> FeMaSRNet:
@@ -78,8 +95,8 @@ def build_generator(opt: Mapping) -> FeMaSRNet:
 def build_discriminator(opt: Mapping) -> UNetDiscriminatorSN:
     if opt.get('type', 'UNetDiscriminatorSN') != 'UNetDiscriminatorSN':
         raise NotImplementedError(f'network {opt["type"]!r} is not ported')
-    return UNetDiscriminatorSN(**{k: v for k, v in opt.items()
-                                  if k not in ('type', 'dtype')})
+    return UNetDiscriminatorSN(dtype=compute_dtype(opt), **{
+        k: v for k, v in opt.items() if k not in ('type', 'dtype')})
 
 
 def frozen_names(names, keywords) -> set:
@@ -123,6 +140,12 @@ class FeMaSRModel(BaseModel):
         self.device = resolve_device(opt.get('device', 'cuda'))
         self.seed = int(opt.get('manual_seed', 0) or 0)
         nopt = opt['network_g']
+        self.dtype = compute_dtype(nopt)
+        if self.dtype != torch.float32 and 'vq_index_f32' not in nopt:
+            logger.info('network_g.dtype bfloat16: the codebook searches '
+                        'run in float32 (vq_index_f32: true); the JAX '
+                        'trainer would search the trainee\'s tokens with '
+                        'bfloat16 cross terms')
         self.net_g = build_generator(nopt)
         init_weights(self.net_g, torch.Generator().manual_seed(self.seed))
         self.LQ_stage = self.net_g.LQ_stage
@@ -272,8 +295,10 @@ class FeMaSRModel(BaseModel):
 
     @torch.no_grad()
     def hq_prior(self, gt: torch.Tensor):
-        """The frozen prior's code indices of GT, per codebook scale."""
-        return self.net_hq(gt)[-1]
+        """The frozen prior's reconstruction of GT (in the compute dtype)
+        and its code indices per codebook scale."""
+        rec, _, _, indices = self.net_hq(gt.to(self.dtype))
+        return rec, indices
 
     def chunks(self, batch: int) -> int:
         """grad_accum_chunks, when it divides the batch (else 1)."""
@@ -326,12 +351,14 @@ class FeMaSRModel(BaseModel):
         left in .grad (averaged over the chunks). Returns (mean total, mean
         loss dict, output, first-scale indices, prior indices)."""
         n = self.chunks(gt.shape[0])
-        gt_indices = self.hq_prior(gt) if self.LQ_stage else None
+        gt_indices = None
+        if self.LQ_stage:
+            self.gt_rec, gt_indices = self.hq_prior(gt)
         vgg_feat = None
         if self.use_semantic:
             with torch.no_grad():
-                vgg_feat = self.vgg(gt)['relu4_4']
-        gen_in = lq if self.LQ_stage else gt
+                vgg_feat = self.vgg(gt.to(self.dtype))['relu4_4']
+        gen_in = (lq if self.LQ_stage else gt).to(self.dtype)
         gate = self.gan_gate()
         self.net_d.requires_grad_(False)
         bs = gt.shape[0] // n
@@ -443,7 +470,7 @@ class FeMaSRModel(BaseModel):
     def _get_inferencer(self) -> SRInferencer:
         net = self.eval_net()
         if self._inferencer is None or self._inferencer.model is not net:
-            self._inferencer = SRInferencer(model=net)
+            self._inferencer = SRInferencer(model=net, dtype=self.dtype)
         return self._inferencer
 
     def test(self, lq: torch.Tensor) -> torch.Tensor:
@@ -550,6 +577,38 @@ class FeMaSRModel(BaseModel):
             for metric, value in self.metric_results.items():
                 tb_logger.add_scalar(f'metrics/{dataset_name}/{metric}',
                                      value, current_iter)
+
+    # -- visuals -------------------------------------------------------------
+
+    @torch.no_grad()
+    def vis_single_code(self, up_factor: int = 2) -> torch.Tensor:
+        """Every code of the first codebook decoded to an image (a map of
+        up_factor^2 copies of the code) by the network validation serves,
+        under no_grad, in chunks of 256, in network_g's dtype: (n_e, 3, h,
+        w) float32 on the device."""
+        net = self.eval_net()
+        idx = torch.arange(self.n_e, device=self.device)[:, None, None]
+        idx = idx.expand(-1, up_factor, up_factor)
+        return torch.cat([net.decode_indices(idx[i:i + 256], self.dtype)
+                          for i in range(0, self.n_e, 256)]).float()
+
+    def get_current_visuals(self) -> Dict[str, torch.Tensor]:
+        """The last iteration's batches for TensorBoard, the first 16 of
+        each, NCHW float32: lq (the loaded one: absent under on-device
+        degradation, as in the JAX trainer), result, the HQ stage's
+        codebook grid, the prior's reconstruction gt_rec (LQ stage) and
+        gt."""
+        vis = 16
+        out = OrderedDict()
+        if self.lq is not None and not self.degrade_on_device:
+            out['lq'] = self.lq[:vis].float()
+        out['result'] = self.output[:vis].float()
+        if not self.LQ_stage:
+            out['codebook'] = self.vis_single_code()
+        if getattr(self, 'gt_rec', None) is not None:
+            out['gt_rec'] = self.gt_rec[:vis].float()
+        out['gt'] = self.gt[:vis].float()
+        return out
 
     # -- checkpoints -------------------------------------------------------
 

@@ -2,7 +2,9 @@
 femasr_tpu/train/pipeline.py).
 
 `train_pipeline` runs `train.total_iter` iterations over the train
-DataLoader, logs every `logger.print_freq`, saves checkpoints and the
+DataLoader, logs every `logger.print_freq` (and with TensorBoard the
+model's current visuals as `samples/<name>` every
+`logger.show_tf_imgs_freq`), saves checkpoints and the
 training state every `logger.save_checkpoint_freq` (and the latest networks
 every `save_latest_freq`), validates on `datasets.val` every `val.val_freq`
 and once more after the last iteration, and resumes from
@@ -26,7 +28,7 @@ from ..data import build_dataset, build_eval_loader, build_train_loader
 from ..models.inference import resolve_device
 from ..utils.logger import (AvgTimer, MessageLogger, get_env_info,
                             get_root_logger, init_tb_logger)
-from ..utils.misc import get_time_str, make_exp_dirs, scandir
+from ..utils.misc import disable_tf32, get_time_str, make_exp_dirs, scandir
 from ..utils.options import copy_opt_file, dict2str, parse_options
 from .femasr_model import FeMaSRModel
 
@@ -74,6 +76,7 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
         opt['path']['log'], f"train_{opt['name']}_{get_time_str()}.log"))
     logger.info(get_env_info())
     logger.info(dict2str(opt))
+    disable_tf32(logger)
     tb_logger = init_tb(opt, logger)
 
     dataset_opt = opt['datasets']['train']
@@ -129,6 +132,11 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
                             'data_time': data_timer.get_avg_time()}
                 log_vars.update(model.get_current_log())
                 msg_logger(log_vars)
+            if tb_logger is not None and crossed(
+                    lg.get('show_tf_imgs_freq', 0), prev_iter, current_iter):
+                for k, v in model.get_current_visuals().items():
+                    tb_logger.add_images(f'samples/{k}', v.clamp(0, 1).cpu(),
+                                         current_iter, dataformats='NCHW')
             if crossed(lg.get('save_checkpoint_freq', 0), prev_iter,
                        current_iter):
                 logger.info('Saving models and training states.')
@@ -171,6 +179,7 @@ def test_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
         opt['path']['log'], f"test_{opt['name']}_{get_time_str()}.log"))
     logger.info(get_env_info())
     logger.info(dict2str(opt))
+    disable_tf32(logger)
     loaders = []
     for _, dataset_opt in sorted(opt['datasets'].items()):
         loader = build_eval_loader(build_dataset(dataset_opt))

@@ -1,6 +1,6 @@
-"""Experiment directories and file scanning (counterpart of
-femasr_tpu/utils/misc.py). Randomness uses explicit generators, so there is
-no global seeding helper."""
+"""Experiment directories, file scanning and the float32 precision setting
+(counterpart of femasr_tpu/utils/misc.py). Randomness uses explicit
+generators, so there is no global seeding helper."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ import os
 import time
 from os import path as osp
 from typing import Iterator, Optional, Tuple, Union
+
+import torch
 
 IMG_EXTENSIONS = ('.jpg', '.JPG', '.jpeg', '.JPEG', '.png', '.PNG', '.ppm',
                   '.PPM', '.bmp', '.BMP', '.tif', '.TIF', '.tiff', '.TIFF',
@@ -60,3 +62,19 @@ def scandir(dir_path: str, suffix: Optional[Union[str, Tuple[str, ...]]]
 def is_image_file(filename: str) -> bool:
     return filename.endswith(IMG_EXTENSIONS)
 
+
+
+def disable_tf32(logger=None) -> None:
+    """Run float32 matmuls and cuDNN convolutions in true float32, not
+    TF32 (torch's default for cuDNN): float32 is the port's parity lane,
+    held to the JAX package and to the kernels, which sum in true float32.
+    Logs the setting."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    msg = ('TF32 off: float32 matmuls and cuDNN convolutions run in true '
+           'float32 (torch.backends.cuda.matmul.allow_tf32 = '
+           'torch.backends.cudnn.allow_tf32 = False)')
+    if logger is None:
+        print(msg, flush=True)
+    else:
+        logger.info(msg)

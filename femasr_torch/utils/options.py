@@ -122,12 +122,14 @@ def check_port_options(opt: dict) -> None:
         if extra:
             refuse(f'{net}: {extra} are serving or TPU formulations of the '
                    'JAX package that the port does not train')
-        if nopt.get('dtype') not in (None, 'float32'):
-            refuse(f'{net}.dtype: {nopt["dtype"]} training is not ported yet '
-                   '(a later slice); train in float32')
-        if nopt.get('use_checkpoint'):
-            refuse(f'{net}.use_checkpoint (rematerialization) is not ported '
-                   'yet (a later slice)')
+        if nopt.get('dtype') not in (None, 'float32', 'bfloat16'):
+            refuse(f'{net}.dtype: {nopt["dtype"]} is not ported (float32 '
+                   'or bfloat16)')
+    gopt = opt.get('network_g') or {}
+    if gopt.get('dtype') == 'bfloat16' and gopt.get('vq_index_f32') is False:
+        refuse('network_g.vq_index_f32: false (a bfloat16 codebook search) '
+               'is not ported: the port searches in float32 at every dtype; '
+               'remove the key or set it true')
     if opt.get('dist'):
         refuse('dist (training and validation across processes) is not '
                'ported yet (ROADMAP A11, multi-GPU)')

@@ -439,6 +439,73 @@ def test_validation_through_kernels_matches_plain(gen, tmp_path):
     assert abs(mk['ssim'] - mp['ssim']) <= 1e-4
 
 
+def test_bf16_g_step_kernels_match_plain(gen, tmp_path):
+    """One bf16 LQ-stage generator step of a SMALL-codebook model on the
+    card (network_g / network_d bfloat16): the frozen prior runs B1 on its
+    bf16 tensor-core route (5 launches), act_bf16 and B3, the trainee's
+    search B3 (2 B3 in all), the trainee's layers their plain versions.
+    Then the same step with every wrapper on its plain version: the
+    prior's indices >= 99.9% equal, the loss within 1e-3 relative, every
+    gradient within 1e-2 of its max or within twice the spread of two
+    steps through the kernels (the bf16 backward is not bit for bit on
+    the card: chip_smoke.py measures 7.6e-3 of their max run to run at the
+    release width)."""
+    from femasr_torch import kernels
+    from femasr_torch.models import FeMaSRNet, init_weights
+    from femasr_torch.train import FeMaSRModel
+
+    small = [[32, 16, 32]]
+    hq = FeMaSRNet(small, LQ_stage=False)
+    init_weights(hq, torch.Generator().manual_seed(1))
+    torch.save({'params': hq.state_dict()}, str(tmp_path / 'hq.pth'))
+    model = FeMaSRModel({
+        'name': 'bf16_card', 'is_train': True, 'device': 'cuda',
+        'manual_seed': 0, 'scale': 4,
+        'network_g': {'type': 'FeMaSRNet', 'codebook_params': small,
+                      'LQ_stage': True, 'scale_factor': 4,
+                      'dtype': 'bfloat16', 'vq_index_f32': True},
+        'network_d': {'type': 'UNetDiscriminatorSN', 'num_feat': 16,
+                      'dtype': 'bfloat16'},
+        'path': {'pretrain_network_hq': str(tmp_path / 'hq.pth')},
+        'train': {
+            'optim_g': {'type': 'Adam', 'lr': 1e-4},
+            'optim_d': {'type': 'Adam', 'lr': 1e-4},
+            'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1.0},
+            'gan_opt': {'type': 'GANLoss', 'gan_type': 'hinge',
+                        'loss_weight': 0.1},
+            'codebook_opt': {'loss_weight': 1.0}}})
+    g = torch.Generator().manual_seed(5)
+    lq = torch.rand((2, 3, 64, 64), generator=g).cuda()
+    gt = torch.rand((2, 3, 256, 256), generator=g).cuda()
+    runs = []
+    for ctx in (contextlib.nullcontext(), contextlib.nullcontext(),
+                kernels.plain_versions()):
+        kernels.reset_launches()
+        with ctx:
+            model.opt_g.zero_grad(set_to_none=True)
+            total, _, _, _, gt_idx = model.g_backward(lq, gt)
+        runs.append((total.item(), gt_idx[0], kernels.launch_counts(), {
+            n: p.grad.clone() for n, p in model.net_g.named_parameters()
+            if p.grad is not None}))
+    (lk, ik, ck, gk), (_, _, _, gk2), (lp, ip, cp, gp) = runs
+    assert ck['conv3'] == 5 and ck['vq_argmin'] == 2 and ck['act_bf16'] > 0
+    assert {k: v for k, v in ck.items()
+            if k not in ('conv3', 'vq_argmin', 'act_bf16')} == {
+        'window_attention': 0, 'matmul_w8a8': 0, 'matmul_w8a8_q': 0,
+        'conv3_w8a8': 0}
+    assert not any(cp.values())
+    assert (ik == ip).float().mean().item() >= 0.999
+    assert abs(lk - lp) <= 1e-3 * abs(lp)
+    assert gk.keys() == gp.keys() and len(gk) > 300
+
+    def of_max(a, b):
+        return {n: ((a[n] - b[n]).abs().max()
+                    / b[n].abs().max().clamp_min(1e-30)).item() for n in b}
+    spread = max(of_max(gk2, gk).values())
+    for n, err in of_max(gk, gp).items():
+        assert err <= max(1e-2, 2 * spread), (n, err, spread)
+
+
 def test_degradation_on_card_matches_cpu_without_sync(gen):
     """The on-device BSRGAN degradation of a batch of 8 smooth 256 px GT
     crops, stage by stage: a warm call runs under

@@ -3,7 +3,8 @@ run through `python -m femasr_torch.train_cli` on a seeded folder (finite
 losses that move, frozen modules untouched, checkpoints written), resumed
 from its saved state bit for bit; grad_accum_chunks=2 against the whole
 batch; the generator EMA; and the options the port refuses, each with its
-reason."""
+reason (a bfloat16 codebook search, a dtype other than float32 and
+bfloat16 among them)."""
 
 import json
 import os
@@ -167,12 +168,13 @@ def test_generator_ema_tracks_the_weights(folder):
     (lambda o: o['train'].update(flat_optimizer=True), 'flat_optimizer'),
     (lambda o: o['network_g'].update(attn_pack=2), 'attn_pack'),
     (lambda o: o.update(model_parallel=2), 'A11'),
-    (lambda o: o['network_g'].update(dtype='bfloat16'), 'later slice'),
-    (lambda o: o['network_g'].update(use_checkpoint=True), 'later slice'),
+    (lambda o: o['network_g'].update(dtype='bfloat16', vq_index_f32=False),
+     'vq_index_f32'),
+    (lambda o: o['network_d'].update(dtype='float16'), 'not ported'),
     (lambda o: o['network_g'].update(ws2d_tail=True), 'ws2d_tail'),
     (lambda o: o.update(dist=True, val={'val_freq': 2}), 'A11'),
 ], ids=['chain_steps', 'flat_optimizer', 'attn_pack', 'model_parallel',
-        'bf16', 'use_checkpoint', 'serving_knob', 'val'])
+        'bf16', 'float16', 'serving_knob', 'val'])
 def test_options_the_port_does_not_carry_are_refused(folder, edit, match):
     opt = options(folder)
     edit(opt)
