@@ -87,7 +87,25 @@ Phases:
      spread); ms per iteration, images/s, peak memory (over the run and
      in the timed iterations) and a profile of each beside the f32 runs;
      B1's bf16 route at the training shape in the kernel checks;
-  8. print a JSON line of per-kernel numbers (and the training numbers),
+  8. data parallelism (A11), run at the end of phase 5 (`dp_phase`):
+     (a) the bf16 LQ release config, batch 8 at gt 256, 2 iterations,
+     under `torchrun --nproc_per_node 1 ... train_cli --launcher pytorch`
+     (NCCL, DistributedDataParallel) against the same run without a
+     launcher: losses and parameters bit for bit or within 1e-6, ms per
+     iteration and idle share of both; (b) the f32 LQ config with SGD at
+     world 2 x batch 4 against world 1 x batch 8 (two cards under NCCL, or
+     two ranks sharing cuda:0 under gloo, as this script chooses), 2
+     iterations with the GAN and the D step: losses and parameters within
+     4x the spread of two world-1 runs (batch 8, and batch 8 in two chunks
+     of 4), never tighter than 1e-5; (c) `inference_cli --dp 2` on the
+     float lane's two images in f32 against one process; (d) `test_cli
+     --launcher pytorch` at world 2 on the LQ validation folder against one
+     process (metrics 1e-6). (a) and (b) run under deterministic
+     algorithms. Each rank is this script (`--rank-worker`), which calls
+     the CLI's main and counts the kernels' launches per rank (B1 5 and B3
+     2 per iteration, act_bf16 20 in bf16; per serving forward and
+     evaluation image B1 5, B2 24, B3 1);
+  9. print a JSON line of per-kernel numbers (and the training numbers),
      the card's name and power limit, and last `{"ok": true, "device":
      {...}}`.
 
@@ -98,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import re
@@ -969,12 +988,12 @@ def bf16_check(dev, state_dict, img, whole, ref, idx_ref):
     return info
 
 
-def main_path(dev, work, whole: int = 512, tiled: int = 720):
+def serving_inputs(work, whole: int = 512, tiled: int = 720) -> tuple:
+    """The seeded random-init x4 release model (saved as a reference .pth)
+    and a folder of two seeded images: (net, pth, folder, {name: side})."""
     import cv2
 
-    from femasr_torch import kernels
-    from femasr_torch.models import FeMaSRNet, SRInferencer, init_weights
-
+    from femasr_torch.models import FeMaSRNet, init_weights
     net = FeMaSRNet([[32, 1024, 512]], LQ_stage=True, scale_factor=4,
                     norm_type='gn', act_type='silu')
     init_weights(net, torch.Generator().manual_seed(0))
@@ -987,6 +1006,16 @@ def main_path(dev, work, whole: int = 512, tiled: int = 720):
     sizes = {'whole.png': whole, 'tiled.png': tiled}
     for name, s in sizes.items():
         cv2.imwrite(os.path.join(in_dir, name), smooth_image(rng, s, s))
+    return net, pth, in_dir, sizes
+
+
+def main_path(dev, work, whole: int = 512, tiled: int = 720):
+    import cv2
+
+    from femasr_torch import kernels
+    from femasr_torch.models import SRInferencer
+
+    net, pth, in_dir, sizes = serving_inputs(work, whole, tiled)
     img = cv2.cvtColor(cv2.imread(os.path.join(in_dir, 'whole.png')),
                        cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
     s4 = 4 * whole
@@ -1082,7 +1111,6 @@ def conv3_w8a8_by_shape(calls: list, events: list) -> list:
 def profile_forward(dev, lane: str, reps: int = 3) -> dict:
     """Device-time breakdown of one warm 512px bf16 whole-image forward;
     in the int8 lane also B6's launches and time per shape."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from femasr_torch.models import SRInferencer
@@ -1104,7 +1132,7 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
             recording_conv3_w8a8(calls):
         sr.run_padded(x)
         sync(dev)
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     kern.sort(key=lambda e: e.time_range.start)
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups['other'] = 0.0
@@ -1743,7 +1771,6 @@ def profile_iteration(model, batch, stage: str, wall_ms: float) -> dict:
     """Device busy time of one warm iteration and its top kernel groups
     (torch.profiler); the idle share is taken against `wall_ms`, the
     iteration's time without the profiler (which slows the host)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from femasr_torch import kernels
@@ -1756,7 +1783,7 @@ def profile_iteration(model, batch, stage: str, wall_ms: float) -> dict:
             model.optimize_parameters()
             sync(model.device)
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     groups = {name: 0.0 for name, _ in TRAIN_KERNEL_GROUPS}
     groups['other'] = 0.0
     by_name = {}
@@ -1769,6 +1796,15 @@ def profile_iteration(model, batch, stage: str, wall_ms: float) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = sum(groups.values())
     idle = max(0.0, 1 - busy / wall_ms)
+    # the union of the kernels' intervals: kernels on other streams (DDP's
+    # all-reduce) overlap the compute, and the sum counts them twice
+    union, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
+        if end is None or a > end:
+            union, end = union + (b - a), b
+        elif b > end:
+            union, end = union + (b - end), b
+    union /= 1e3
     top = sorted(((g, v) for g, v in groups.items() if v > 0),
                  key=lambda kv: -kv[1])
     print(f'[train] {stage} profile, one warm iteration: device busy '
@@ -1779,6 +1815,8 @@ def profile_iteration(model, batch, stage: str, wall_ms: float) -> dict:
         print(f'[train]   top: {ms:8.2f} ms  {name[:100]}', flush=True)
     return dict(unprofiled_wall_ms=wall_ms, profiled_wall_ms=wall,
                 device_busy_ms=busy, idle_share=idle, kernels=len(kern),
+                device_union_ms=union,
+                idle_share_union=max(0.0, 1 - union / wall_ms),
                 groups_ms=dict(top),
                 conv3_routes_ms={n: ms for n, ms in by_name.items()
                                  if 'conv3' in n and 'w8a8' not in n})
@@ -2057,6 +2095,7 @@ def train_phase(dev, work: str) -> dict:
     out.update(bsrgan_phase(dev, work, inputs, {
         stage: out[stage]['timing']['ms_per_iteration']
         for stage in ('lq', 'hq')}))
+    out['dp'] = dp_phase(dev, work, inputs, vals)
     return out
 
 
@@ -2400,7 +2439,6 @@ def degradation_alone(dev, gt: torch.Tensor, iteration_ms: float,
     and device ms (profiler) per call, launches per call, its share of the
     on-device LQ iteration, no synchronizing op in a warm call, and the
     card's LQ against the CPU's under the same draws."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from femasr_torch.ops import degradations as D
@@ -2431,7 +2469,7 @@ def degradation_alone(dev, gt: torch.Tensor, iteration_ms: float,
                              ProfilerActivity.CUDA]) as prof:
         run_all()
         sync(dev)
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     device_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / len(
         DEGRADE_SEEDS)
     launches = len(kern) / len(DEGRADE_SEEDS)
@@ -2631,6 +2669,438 @@ def bsrgan_phase(dev, work: str, inputs: dict, paired_ms: dict) -> dict:
     return out
 
 
+# -- phase 8: data parallelism (A11) -------------------------------------------
+
+# (a) and (b) train DP_ITERS iterations; (a) then times DP_TIME_REPS warm
+# iterations with and without DDP. Both compare runs under deterministic
+# algorithms (cuDNN's deterministic convolutions, deterministic index_put
+# and scatter; CUBLAS_WORKSPACE_CONFIG in the workers' environment): the
+# card's bf16 and f32 backward passes are otherwise not bit for bit from
+# one run to the next (see the bf16 resume gate), which would hide what DDP
+# changes. The timing runs drop them again.
+DP_ITERS, DP_TIME_REPS = 2, 4
+DP_A_RTOL = 1e-6           # (a): DDP at world 1 against no launcher
+# (b): world 2 x 4 against world 1 x 8 within DP_B_SPREADS times the
+# spread between two world-1 runs (x 8, and x 8 in two chunks of 4: the
+# per-rank batch), and never tighter than DP_B_FLOOR: both differences are
+# rounding in other summation orders, one sample each (a CPU rehearsal at
+# gt 64: parameters 2.1e-5 against a spread of 9.0e-6, in a bias). (b) trains with SGD (DP_B_OPTIM):
+# Adam's first update lr * g / (|g| + eps) turns the rounding noise of a
+# gradient whose true value is zero (the attention's key bias: softmax
+# ignores a constant added to every key) into a step of full size, so two
+# world-1 runs at other batch sizes differ by ~lr in such parameters and
+# in every loss after the first update (a CPU rehearsal: 2.6e-2 of a
+# tensor's largest value)
+DP_B_FLOOR, DP_B_SPREADS = 1e-5, 4
+DP_B_OPTIM = {'type': 'SGD', 'lr': 1e-2}
+DP_SERVE_TOL = 1e-4         # (c): f32 outputs, mean abs diff of [0, 1]
+DP_EVAL_RTOL = 1e-6         # (d): test_cli metrics at world 2 vs world 1
+DP_TIMEOUT = 420
+DP_ENV = {'CUBLAS_WORKSPACE_CONFIG': ':4096:8'}
+DP_LOSSES = TRAIN_LOSSES + ('l_g_total', 'codebook_perplexity',
+                            'out_d_real', 'out_d_fake')
+
+
+def deterministic(on: bool) -> None:
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.backends.cudnn.deterministic = on
+
+
+def rank_worker(plan_path: str) -> int:
+    """One process of the dp phase (`chip_smoke.py --rank-worker plan`,
+    under torchrun or alone): runs the plan's CLI jobs in order through
+    their `main` (the modules `python -m femasr_torch.<cli>` runs), with
+    the kernel counts zeroed just before each and read just after, and
+    writes <out>.rank<r>.json."""
+    import importlib
+
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from femasr_torch import kernels
+    from femasr_torch.parallel.dist_util import shutdown
+    from femasr_torch.utils.misc import disable_tf32
+    disable_tf32()
+    with open(plan_path) as f:
+        plan = json.load(f)
+    rank = int(os.environ.get('RANK', 0))
+    results = {}
+    for job in plan['jobs']:
+        deterministic(job['deterministic'])
+        module = importlib.import_module(job['module'])
+        cwd = os.getcwd()
+        os.chdir(job['cwd'])
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = module.main(job['argv'])
+        finally:
+            os.chdir(cwd)
+        dev = (torch.device('cuda', torch.cuda.current_device())
+               if torch.cuda.is_available() else torch.device('cpu'))
+        sync(dev)
+        r = dict(launches=kernels.launch_counts(),
+                 seconds=time.perf_counter() - t0, device=str(dev),
+                 backend=dist.get_backend() if dist.is_initialized()
+                 else None)
+        if job['module'].endswith('test_cli'):
+            r['metrics'] = dict(out.metric_results)
+        elif job['module'].endswith('train_cli'):
+            r['ddp'] = type(out.net_g_train).__name__
+            r['device'] = str(out.device)
+            if job.get('timing'):
+                deterministic(False)
+                with open(job['opt']) as f:
+                    batch = first_batch(json.load(f))
+                r['timing'] = time_iterations(out, batch, job['timing'])
+                r['profile'] = profile_iteration(
+                    out, batch, f"dp {job['name']} rank {rank}",
+                    r['timing']['ms_per_iteration'])
+        else:
+            r['stats'] = out
+        results[job['name']] = r
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(f"{plan['out']}.rank{rank}.json", 'w') as f:
+        json.dump(results, f)
+    shutdown()
+    return 0
+
+
+def launch_ranks(work: str, name: str, jobs: list, nproc: int,
+                 card: str) -> list:
+    """The jobs in `nproc` ranks under torchrun (0: one process without a
+    launcher), each rank `chip_smoke.py --rank-worker`; the process group
+    is killed whole at DP_TIMEOUT. Returns the ranks' results."""
+    import signal
+    import socket
+    plan = os.path.join(work, f'{name}.plan.json')
+    with open(plan, 'w') as f:
+        json.dump({'jobs': jobs, 'out': os.path.join(work, name)}, f)
+    me = [os.path.abspath(__file__), '--rank-worker', plan]
+    if nproc:
+        with socket.socket() as s:
+            s.bind(('127.0.0.1', 0))
+            port = s.getsockname()[1]
+        cmd = [sys.executable, '-m', 'torch.distributed.run',
+               '--nproc_per_node', str(nproc), '--master_addr', '127.0.0.1',
+               '--master_port', str(port), *me]
+    else:
+        cmd = [sys.executable, *me]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=dict(os.environ, **DP_ENV),
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=DP_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(work, f'{name}.log'), 'w') as f:
+        f.write(log)
+    for line in log.splitlines():
+        if line.startswith('[train] dp '):
+            print(f'{line} | {card}', flush=True)
+        elif line.startswith('[train] '):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        print(log[-6000:], flush=True)
+    require(proc.returncode == 0, f'dp {name}: exit code {proc.returncode}')
+    print(f'[dp] {name}: {max(nproc, 1)} process(es) in {seconds:.1f} s '
+          f'(start, model builds and runs) | {card}', flush=True)
+    return [json.load(open(os.path.join(work, f'{name}.rank{r}.json')))
+            for r in range(max(nproc, 1))]
+
+
+def read_run(work: str, exp: str) -> tuple:
+    """A training run's log records and its saved networks (latest)."""
+    root = os.path.join(work, 'experiments', exp)
+    with open(os.path.join(root, 'train_log.jsonl')) as f:
+        records = [json.loads(line) for line in f]
+    nets = {k: torch.load(os.path.join(root, 'models', f'{k}_latest.pth'),
+                          weights_only=True)['params']
+            for k in ('net_g', 'net_d')}
+    return records, nets
+
+
+def run_diff(a: tuple, b: tuple) -> dict:
+    """Worst relative differences of two runs: logged losses, and every
+    tensor of both networks against its largest value; equal: bit for
+    bit."""
+    (ra, na), (rb, nb) = a, b
+    require([r['iter'] for r in ra] == [r['iter'] for r in rb],
+            'the runs logged other iterations')
+    losses = max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-12)
+                 for x, y in zip(ra, rb) for k in DP_LOSSES if k in x)
+    params, worst = 0.0, None
+    equal = all(x[k] == y[k] for x, y in zip(ra, rb) for k in DP_LOSSES
+                if k in x)
+    for net in na:
+        for k, t in na[net].items():
+            u = nb[net][k]
+            equal = equal and torch.equal(t, u)
+            d = ((t.double() - u.double()).abs().max()
+                 / t.double().abs().max().clamp_min(1e-12)).item()
+            if d > params:
+                params, worst = d, f'{net}.{k}'
+    return dict(losses_rel=losses, params_rel=params, worst_tensor=worst,
+                bit_for_bit=equal)
+
+
+def dp_launches(dp: dict, name: str) -> dict:
+    """A kernel's launches per rank in the dp phase's runs."""
+    return dict(
+        a_nccl_world1_per_iteration=dp['a']['ddp']['launches'][name]
+        / DP_ITERS,
+        b_world2_per_rank_per_iteration=[
+            r['launches'][name] / DP_ITERS for r in dp['b']['ranks']],
+        c_serving_world2_per_rank=[
+            r[name] for r in dp['c']['launches_per_rank']],
+        d_evaluation_world2_per_rank=[
+            r[name] for r in dp['d']['launches_per_rank']])
+
+
+def degradation_by_batch(dev, batches=(8, 16)) -> dict:
+    """Host ms (synchronized) and device ms (profiler) of one on-device
+    degradation call per GT batch size at gt 256, over DEGRADE_SEEDS: at
+    world W every rank degrades the global batch W x B."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from femasr_torch.ops import degradations as D
+    out = {}
+    for b in batches:
+        gt = torch.rand((b, 3, TRAIN_GT, TRAIN_GT),
+                        generator=torch.Generator().manual_seed(b)).to(dev)
+
+        def run_all():
+            for seed in DEGRADE_SEEDS:
+                D.degradation_bsrgan(gt, torch.Generator(dev).manual_seed(
+                    seed), 4)
+        run_all()
+        sync(dev)
+        t0 = time.perf_counter()
+        run_all()
+        sync(dev)
+        host = (time.perf_counter() - t0) * 1e3 / len(DEGRADE_SEEDS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_all()
+            sync(dev)
+        device = sum(e.time_range.elapsed_us() for e in device_kernels(
+            prof)) / 1e3 / len(DEGRADE_SEEDS)
+        out[b] = dict(host_ms=host, device_ms=device)
+    return out
+
+
+def dp_arrangement(dev) -> dict:
+    """Two ranks: NCCL on two cards, or, on one card, gloo with both ranks
+    on cuda:0 (NCCL refuses two ranks on one device). The choice is this
+    script's; the package takes what it is given. (On the CPU, for a
+    rehearsal: gloo.)"""
+    if dev.type == 'cpu':
+        return dict(name='gloo on the CPU', device='cpu', argv=[])
+    if torch.cuda.device_count() >= 2:
+        return dict(name='NCCL on two cards', device='cuda', argv=[])
+    return dict(name='gloo, two ranks sharing cuda:0', device='cuda:0',
+                argv=['--dist_backend', 'gloo'])
+
+
+def dp_phase(dev, work: str, inputs: dict, vals: dict) -> dict:
+    """Data parallelism (A11) through the CLIs: (a) bf16 LQ training under
+    torchrun at world 1 (NCCL, DDP) against the same run without a
+    launcher; (b) f32 LQ training at world 2 x 4 against world 1 x 8; (c)
+    inference_cli --dp 2 against one process; (d) test_cli at world 2
+    against world 1. Launches per rank of every run."""
+    import cv2
+    card = gpu_line()
+    work = os.path.join(work, 'dp')
+    os.makedirs(work)
+    arr = dp_arrangement(dev)
+    base = dev.type         # 'cuda': rank r on cuda:LOCAL_RANK
+    launcher = ['--launcher', 'pytorch']
+    net, pth, in_dir, sizes = serving_inputs(work)
+    del net
+    out = {'arrangement': arr['name'], 'card': card}
+
+    def train_job(name, opt, argv=(), timing=0, device=base):
+        opt = dict(opt, name=name, device=device)
+        path = os.path.join(work, f'{name}.json')
+        with open(path, 'w') as f:
+            json.dump(opt, f)
+        return dict(name=name, module='femasr_torch.train_cli', cwd=work,
+                    argv=['-opt', path, *argv], deterministic=True,
+                    timing=timing, opt=path)
+
+    def lq_opt(batch, bf16=False, sgd=False, **train):
+        opt = release_options(LQ_YML, 'dp', inputs, DP_ITERS, 1e9)
+        opt['path'] = {'pretrain_network_hq': inputs['hq'],
+                       'pretrain_lpips': inputs['lpips'],
+                       'strict_load': False}
+        opt['datasets']['train']['batch_size_per_gpu'] = batch
+        opt['train'].update(train)
+        if sgd:
+            opt['train'].update(optim_g=dict(DP_B_OPTIM),
+                                optim_d=dict(DP_B_OPTIM))
+        return with_precision(opt, bf16)
+
+    def serve_job(name, device, *argv):
+        return dict(name=name, module='femasr_torch.inference_cli', cwd=work,
+                    deterministic=False, argv=[
+                        '-i', in_dir, '-w', pth, '-o',
+                        os.path.join(work, name), '-s', '4', '--precision',
+                        'f32', '--device', device, *argv])
+
+    test_opt = load_yml(TEST_YML)
+    test_opt['datasets']['test_1'].update(
+        dataroot_gt=os.path.join(vals['lq'], 'gt'),
+        dataroot_lq=os.path.join(vals['lq'], 'lq'))
+    test_opt['path'].update(pretrain_network_g=pth,
+                            pretrain_lpips=inputs['lpips'])
+
+    def eval_job(name, device, *argv):
+        path = os.path.join(work, f'{name}.json')
+        with open(path, 'w') as f:
+            json.dump(dict(test_opt, name=name, device=device), f)
+        return dict(name=name, module='femasr_torch.test_cli', cwd=work,
+                    deterministic=False, argv=['-opt', path, *argv])
+
+    torch.cuda.empty_cache()
+    one = launch_ranks(work, 'world1', [
+        train_job('a_bare', lq_opt(8, bf16=True), timing=DP_TIME_REPS),
+        train_job('b_w1', lq_opt(8, sgd=True)),
+        train_job('b_w1_chunks', lq_opt(8, sgd=True, grad_accum_chunks=2)),
+        serve_job('c_w1', base), eval_job('d_w1', base)], 0, card)[0]
+    ddp = launch_ranks(work, 'nccl1', [train_job(
+        'a_ddp', lq_opt(8, bf16=True), launcher, DP_TIME_REPS)], 1,
+        card)[0]
+    two = launch_ranks(work, 'world2', [
+        train_job('b_w2', lq_opt(4, sgd=True), launcher + arr['argv'],
+                  device=arr['device']),
+        serve_job('c_w2', arr['device'], '--dp', '2', *launcher,
+                  *arr['argv']),
+        eval_job('d_w2', arr['device'], *launcher, *arr['argv'])], 2, card)
+
+    # (a) NCCL at world 1
+    a = run_diff(read_run(work, 'a_bare'), read_run(work, 'a_ddp'))
+    require(ddp['a_ddp']['ddp'] == 'DistributedDataParallel'
+            and ddp['a_ddp']['backend'] == ('nccl' if base == 'cuda'
+                                             else 'gloo')
+            and one['a_bare']['ddp'] == 'FeMaSRNet',
+            f"(a) ran {ddp['a_ddp']['ddp']} on {ddp['a_ddp']['backend']}")
+    for r in (one['a_bare'], ddp['a_ddp']):
+        want = {k: TRAIN_LAUNCHES['lq_bf16'].get(k, 0) * DP_ITERS
+                for k in r['launches']}
+        require(r['launches'] == want, f"(a) launches {r['launches']}, "
+                                       f'expected {want}')
+    print(f'[dp] (a) bf16 LQ, batch 8, {DP_ITERS} iterations, torchrun '
+          f'--nproc_per_node 1 --launcher pytorch (NCCL, DDP) vs no '
+          f"launcher: bit for bit {a['bit_for_bit']}; losses within "
+          f"{a['losses_rel']:.2e}, parameters within {a['params_rel']:.2e} "
+          f"relative (tol {DP_A_RTOL}); launches per rank "
+          f"{ddp['a_ddp']['launches']}", flush=True)
+    require(max(a['losses_rel'], a['params_rel']) <= DP_A_RTOL,
+            f'(a) DDP at world 1 off by {a}')
+    for label, r in (('no launcher', one['a_bare']),
+                     ('DDP at world 1', ddp['a_ddp'])):
+        t, prof = r['timing'], r['profile']
+        print(f'[dp] (a) bf16 LQ, batch 8 at gt 256, {label}: '
+              f"{t['ms_per_iteration']:.1f} ms per iteration over "
+              f"{t['reps']} warm iterations, idle share "
+              f"{prof['idle_share_union']:.3f} (the device busy "
+              f"{prof['device_union_ms']:.1f} ms: the union of its "
+              f"kernels; their sum {prof['device_busy_ms']:.1f} ms) | "
+              f'{card}', flush=True)
+    out['a'] = dict(diff=a, bare=one['a_bare'], ddp=ddp['a_ddp'])
+
+    # (b) two ranks against one process at the global batch
+    w1 = read_run(work, 'b_w1')
+    spread = run_diff(w1, read_run(work, 'b_w1_chunks'))
+    b = run_diff(w1, read_run(work, 'b_w2'))
+    bound = {k: max(DP_B_SPREADS * spread[k], DP_B_FLOOR)
+             for k in ('losses_rel', 'params_rel')}
+    ranks = two[0]['b_w2'], two[1]['b_w2']
+    for r in ranks:
+        want = {k: TRAIN_LAUNCHES['lq'].get(k, 0) * DP_ITERS
+                for k in r['launches']}
+        require(r['ddp'] == 'DistributedDataParallel'
+                and r['launches'] == want,
+                f"(b) rank ran {r['ddp']}, launches {r['launches']}")
+    print(f"[dp] (b) f32 LQ (SGD), {arr['name']}: world 2 x batch 4 vs world 1 x "
+          f"batch 8 after {DP_ITERS} iterations: losses {b['losses_rel']:.2e}"
+          f" (bound {bound['losses_rel']:.2e}), parameters "
+          f"{b['params_rel']:.2e} (bound {bound['params_rel']:.2e}, worst "
+          f"{b['worst_tensor']}); the spread of two world-1 runs (batch 8, "
+          f"and batch 8 in two chunks of 4): losses {spread['losses_rel']:.2e}"
+          f", parameters {spread['params_rel']:.2e} ({spread['worst_tensor']}"
+          f"); launches per rank {[r['launches'] for r in ranks]}",
+          flush=True)
+    require(b['losses_rel'] <= bound['losses_rel']
+            and b['params_rel'] <= bound['params_rel'],
+            f'(b) world 2 off world 1 by {b}, bound {bound}')
+    out['b'] = dict(diff=b, spread=spread, bound=bound,
+                    ranks=[dict(launches=r['launches'], device=r['device'],
+                                backend=r['backend']) for r in ranks])
+
+    # (c) data-parallel serving
+    worst = {}
+    for name in sizes:
+        x = cv2.imread(os.path.join(work, 'c_w1', name)).astype(np.float64)
+        y = cv2.imread(os.path.join(work, 'c_w2', name)).astype(np.float64)
+        worst[name] = dict(max_levels=float(np.abs(x - y).max()),
+                           mean_abs=float(np.abs(x - y).mean() / 255))
+    # forwards per rank: the whole image (batch 1 padded to 2) and the
+    # tiles, one per rank per forward
+    tiles = (-(-sizes['tiled.png'] // 240)) ** 2
+    fwd = 1 + (tiles + 1) // 2
+    want = {k: v * fwd for k, v in VAL_LAUNCHES['lq'].items()}
+    serve_counts = [two[r]['c_w2']['launches'] for r in (0, 1)]
+    print(f'[dp] (c) inference_cli --dp 2 (f32, {arr["name"]}) vs one '
+          f'process: {worst} (tol mean {DP_SERVE_TOL}, max 1 level); '
+          f'launches per rank {serve_counts} (one process '
+          f"{one['c_w1']['launches']}); wall {two[0]['c_w2']['seconds']:.1f} "
+          f"s vs {one['c_w1']['seconds']:.1f} s: a correctness run, not a "
+          f'scaling number | {card}', flush=True)
+    for r in serve_counts:
+        require(all(r.get(k, 0) == v for k, v in want.items()),
+                f'(c) launches per rank {r}, expected {want}')
+    require(all(w['mean_abs'] <= DP_SERVE_TOL and w['max_levels'] <= 1
+                for w in worst.values()), f'(c) outputs differ: {worst}')
+    out['c'] = dict(diff=worst, launches_per_rank=serve_counts,
+                    world1_launches=one['c_w1']['launches'])
+
+    # (d) evaluation
+    m1 = one['d_w1']['metrics']
+    d_counts = [two[r]['d_w2']['launches'] for r in (0, 1)]
+    diffs = []
+    for r in (0, 1):
+        m2 = two[r]['d_w2']['metrics']
+        require(sorted(m2) == sorted(m1), f'(d) metrics {sorted(m2)}')
+        diffs.append({k: abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-12)
+                      for k in m1})
+    print(f'[dp] (d) test_cli --launcher pytorch at world 2 ({arr["name"]}) '
+          f'vs one process: {m1}; relative differences per rank {diffs} '
+          f'(tol {DP_EVAL_RTOL}); launches per rank {d_counts}', flush=True)
+    require(all(v <= DP_EVAL_RTOL for d in diffs for v in d.values()),
+            f'(d) metrics differ: {diffs}')
+    for r in d_counts:
+        want = {k: VAL_LAUNCHES['lq'].get(k, 0) for k in r}
+        require(r == want, f'(d) launches per rank {r}, expected {want}')
+    out['d'] = dict(metrics=m1, rel_diff=diffs, launches_per_rank=d_counts)
+
+    if dev.type == 'cuda':
+        deg = degradation_by_batch(dev)
+        print('[dp] the on-device degradation per call (each rank degrades '
+              'the global batch): ' + ', '.join(
+                  f"batch {b}: host {v['host_ms']:.2f} ms, device "
+                  f"{v['device_ms']:.2f} ms" for b, v in deg.items())
+              + f' | {card}', flush=True)
+        out['degradation_by_global_batch'] = deg
+    return out
+
+
 def tensor_core_counts() -> dict:
     """Tensor-core instructions in the SASS of each kernel library, from
     cuobjdump: HMMA / IMMA (mma.sync, float / integer), HGMMA / IGMMA
@@ -2649,6 +3119,15 @@ def tensor_core_counts() -> dict:
     return counts
 
 
+def device_kernels(prof) -> list:
+    """The profile's kernels on the card; a record_function range that the
+    profiler also puts on the card's timeline (DistributedDataParallel.
+    forward, Optimizer.step) is no kernel."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)]
+
+
 def sync(dev) -> None:
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
@@ -2662,10 +3141,16 @@ def gpu_line() -> str:
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--rank-worker', metavar='PLAN',
+                        help='run as one process of the dp phase (the '
+                             'script starts these itself)')
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from femasr_torch import kernels
     from femasr_torch.kernels import _build
@@ -2738,6 +3223,8 @@ def main() -> int:
             launches_validation_bf16={f'{stage}_per_image': train[
                 f'{stage}_bf16']['validation_launches_per_image'][name]
                 for stage in ('lq', 'hq')},
+            # the data-parallel runs', per rank (dp phase)
+            launches_dp=dp_launches(train['dp'], name),
             # the validation path's, per image, and test_cli's
             launches_validation=dict(
                 {f'{stage}_per_image': train[stage][

@@ -188,37 +188,57 @@ def build_dataset(opt: dict) -> Dataset:
 class EpochSampler(Sampler):
     """A seeded permutation per epoch over the (enlarged) dataset; yields
     (index, per-sample seed). `start(epoch, skip)` sets the epoch and skips
-    its first `skip` items."""
+    its first `skip` positions.
 
-    def __init__(self, dataset_size: int, seed: int, ratio: int = 1):
+    Data parallel: the epoch's one order is cut into global batches of
+    world_size x batch positions, and rank r takes block r of each (so the
+    ranks' batches, concatenated in rank order, are the world-1 batch of
+    world_size x batch); positions past the last whole global batch are
+    dropped, on every rank alike. Positions and `skip` count in the global
+    order, and the seed of a sample is (seed, epoch, global position) at
+    every world size."""
+
+    def __init__(self, dataset_size: int, seed: int, ratio: int = 1,
+                 rank: int = 0, world_size: int = 1, batch: int = 1):
         self.dataset_size = dataset_size
         self.seed = int(seed)
         self.num_samples = math.ceil(dataset_size * ratio)
+        self.rank, self.world_size, self.batch = rank, world_size, batch
         self.epoch, self.skip = 0, 0
 
     def start(self, epoch: int, skip: int = 0) -> None:
         self.epoch, self.skip = epoch, skip
 
+    def _positions(self) -> range:
+        gb = self.batch * self.world_size
+        return range(self.skip, self.num_samples // gb * gb)
+
     def __iter__(self) -> Iterator[Tuple[int, Tuple[int, int, int]]]:
         order = np.random.default_rng((self.seed, self.epoch)).permutation(
             self.num_samples) % self.dataset_size
-        for pos in range(self.skip, self.num_samples):
-            yield int(order[pos]), (self.seed, self.epoch, pos)
+        gb, lo = self.batch * self.world_size, self.rank * self.batch
+        for pos in self._positions():
+            if lo <= pos % gb < lo + self.batch:
+                yield int(order[pos]), (self.seed, self.epoch, pos)
 
     def __len__(self) -> int:
-        return self.num_samples - self.skip
+        return len(self._positions()) // self.world_size
 
 
 def build_train_loader(dataset: Dataset, opt: dict, seed: int,
-                       pin_memory: bool = False
+                       pin_memory: bool = False, rank: int = 0,
+                       world_size: int = 1
                        ) -> Tuple[DataLoader, EpochSampler]:
     """A DataLoader of full batches of `batch_size_per_gpu` over an
-    EpochSampler, with `num_worker_per_gpu` workers."""
+    EpochSampler, with `num_worker_per_gpu` workers; with world_size > 1
+    rank `rank`'s blocks of the global batches."""
+    batch = opt['batch_size_per_gpu']
     sampler = EpochSampler(len(dataset), seed,
-                           opt.get('dataset_enlarge_ratio', 1))
+                           opt.get('dataset_enlarge_ratio', 1), rank,
+                           world_size, batch)
     workers = int(opt.get('num_worker_per_gpu', 0))
     loader = DataLoader(
-        dataset, batch_size=opt['batch_size_per_gpu'], sampler=sampler,
+        dataset, batch_size=batch, sampler=sampler,
         num_workers=workers, drop_last=True, pin_memory=pin_memory,
         generator=torch.Generator().manual_seed(seed),
         persistent_workers=False)

@@ -3,6 +3,11 @@
 Example:
     python -m femasr_torch.inference_cli -i ./testset -w FeMaSR_SRX4_model_g.pth \
         -o results_x4/ -s 4
+
+Data-parallel serving, one process per card (each forward's batch is
+sharded over the ranks; rank 0 writes the images):
+    torchrun --nproc_per_node 2 -m femasr_torch.inference_cli -i ./testset \
+        -w FeMaSR_SRX4_model_g.pth -o results_x4/ --dp 2 --launcher pytorch
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help='Whole-image path if h*w < max_size^2, else tiled')
     parser.add_argument('--tile_size', type=int, default=240)
     parser.add_argument('--tile_pad', type=int, default=16)
-    parser.add_argument('--tile_batch', type=int, default=1,
-                        help='Tiles per batched forward')
+    parser.add_argument('--tile_batch', type=int, default=None,
+                        help='Tiles per batched forward (default 1; with '
+                             '--dp one tile per rank)')
     parser.add_argument('--precision', type=str, default='bf16',
                         choices=['bf16', 'f32'],
                         help='Compute dtype (parameters stay f32)')
@@ -65,22 +71,74 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              'match the model\'s exactly (default: overlay '
                              'it onto the seed-0 init, counting unused, '
                              'missing and skipped keys)')
-    parser.add_argument('--device', type=str, default='cuda')
+    parser.add_argument('--device', type=str, default='cuda',
+                        help='cuda (under a launcher cuda:LOCAL_RANK), '
+                             'cuda:i (every rank on card i) or cpu')
+    parser.add_argument('--dp', type=int, default=0,
+                        help='>0: shard each batch over a data-parallel mesh '
+                             'of this many ranks (the world size of '
+                             '--launcher pytorch|slurm)')
+    parser.add_argument('--tp', type=int, default=1,
+                        help='tensor-parallel axis size (only 1: ROADMAP '
+                             'A11b)')
+    parser.add_argument('--launcher', choices=['none', 'pytorch', 'slurm'],
+                        default='none',
+                        help='pytorch: one process per card started by '
+                             'torchrun; slurm: by srun')
+    parser.add_argument('--dist_backend', choices=['nccl', 'gloo'],
+                        default=None,
+                        help='with a launcher: the process group\'s backend '
+                             '(default nccl on the card, gloo on the CPU)')
     return parser.parse_args(argv)
+
+
+def serving_mesh(args: argparse.Namespace):
+    """Join the launcher's process group and build the --dp mesh (None for
+    one process); refuses --tp > 1 and a --dp other than the world size.
+    Sets args.device to this rank's device."""
+    from .parallel.dist_util import get_dist_info, init_dist
+    from .parallel.mesh import TP_LATER, create_mesh
+    if args.tp > 1:
+        raise SystemExit(f'--tp {args.tp}: {TP_LATER}')
+    command = (f'torchrun --nproc_per_node {max(args.dp, 2)} -m '
+               f'femasr_torch.inference_cli ... --dp {max(args.dp, 2)} '
+               '--launcher pytorch')
+    if args.launcher == 'none':
+        if args.dist_backend is not None:
+            raise SystemExit('--dist_backend needs a launcher (--launcher '
+                             'pytorch or slurm)')
+        if args.dp > 1:
+            raise SystemExit(f'--dp {args.dp} needs one process per rank, '
+                             f'started by a launcher: {command}')
+        return None
+    device = init_dist(args.launcher, args.dist_backend, args.device)
+    args.device = str(device)
+    world = get_dist_info()[1]
+    if args.dp != world:
+        raise SystemExit(f'--dp {args.dp}, but the launcher started {world} '
+                         f'processes: give --dp {world}, or start '
+                         f'{args.dp} ({command})')
+    return create_mesh(data=world, device_type=device.type)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI; returns {'images': n, 'megapixels': mp, 'seconds': s}."""
     args = parse_args(argv)
     from .models.inference import load_inferencer
+    from .parallel.mesh import is_main_process
     from .utils.img_util import imread_rgb, imwrite, rgb_to_bgr_uint8, scandir
     from .utils.misc import disable_tf32
 
+    mesh = serving_mesh(args)
+    main_rank = is_main_process()
+    log = print if main_rank else (lambda *a, **k: None)
     disable_tf32()
+    if args.tile_batch is None:
+        args.tile_batch = max(1, args.dp)   # one tile per rank
 
     dtype = torch.bfloat16 if args.precision == 'bf16' else torch.float32
     sr = load_inferencer(args.weight, scale_factor=args.out_scale,
-                         dtype=dtype, device=args.device,
+                         dtype=dtype, device=args.device, mesh=mesh,
                          max_tile_batch=args.tile_batch,
                          int8_tail=args.int8_tail,
                          int8_levels=args.int8_levels,
@@ -88,7 +146,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          int8_swin=args.int8_swin, int8_mlp=args.int8_mlp,
                          strict=args.strict_load)
 
-    os.makedirs(args.output, exist_ok=True)
+    if main_rank:
+        os.makedirs(args.output, exist_ok=True)
     if os.path.isfile(args.input):
         paths = [args.input]
     else:
@@ -104,6 +163,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         return os.path.relpath(path, args.input)
 
     def save(img_name, out):
+        if not main_rank:
+            return
         base, _ = os.path.splitext(img_name)
         suffix = f'_{args.suffix}' if args.suffix else ''
         imwrite(rgb_to_bgr_uint8(out),
@@ -118,7 +179,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         for path in paths:
             rgb = imread_rgb(path)
             if rgb is None:
-                print(f'  ! cannot read {path}, skipping')
+                log(f'  ! cannot read {path}, skipping')
                 continue
             imgs.append(rgb)
             names.append(rel_name(path))
@@ -130,18 +191,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         for name, out in zip(names, outs):
             save(name, out)
         mp = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
-        print(f'{len(imgs)} images ({mp:.3f} MP input) in {dt:.3f}s '
-              f'({mp / dt:.3f} MP/s)', flush=True)
+        log(f'{len(imgs)} images ({mp:.3f} MP input) in {dt:.3f}s '
+            f'({mp / dt:.3f} MP/s)', flush=True)
         return {'images': len(imgs), 'megapixels': mp, 'seconds': dt}
 
     total_mp = total_s = 0.0
     n = 0
     for idx, path in enumerate(paths):
         img_name = rel_name(path)
-        print(f'[{idx + 1}/{len(paths)}] Processing: {img_name}', flush=True)
+        log(f'[{idx + 1}/{len(paths)}] Processing: {img_name}', flush=True)
         rgb = imread_rgb(path)
         if rgb is None:
-            print(f'  ! cannot read {path}, skipping')
+            log(f'  ! cannot read {path}, skipping')
             continue
         t0 = time.time()
         out = sr(rgb, max_size=args.max_size, tile_size=args.tile_size,
@@ -151,11 +212,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         save(img_name, out)
         mp = rgb.shape[0] * rgb.shape[1] / 1e6
         total_mp, total_s, n = total_mp + mp, total_s + dt, n + 1
-        print(f'  {rgb.shape[1]}x{rgb.shape[0]} -> '
-              f'{out.shape[1]}x{out.shape[0]} in {dt:.3f}s '
-              f'({mp / dt:.3f} MP/s input)', flush=True)
+        log(f'  {rgb.shape[1]}x{rgb.shape[0]} -> '
+            f'{out.shape[1]}x{out.shape[0]} in {dt:.3f}s '
+            f'({mp / dt:.3f} MP/s input)', flush=True)
     return {'images': n, 'megapixels': total_mp, 'seconds': total_s}
 
 
 if __name__ == '__main__':
     main()
+    from .parallel.dist_util import shutdown
+    shutdown()

@@ -5,7 +5,9 @@ Images are NCHW float tensors in [0, 1] (`run_padded`, `run_tiled`) or HWC
 numpy arrays (`__call__`, `run_bucketed`). The model runs in eval mode
 under torch.inference_mode() (a live module, `model=`: torch.no_grad()) in
 the chosen dtype (float32 or bfloat16) with float32 parameters; outputs are
-clamped to [0, 1] in float32.
+clamped to [0, 1] in float32. With a data-parallel mesh
+(`parallel.mesh.create_mesh`), every forward shards its batch over the
+ranks (counterpart of the JAX SRInferencer's mesh=).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import data_size, gather_batch, local_slice
 from .convert import load_torch_checkpoint, merge_state_dict
 from .femasr_arch import FeMaSRNet, init_weights
 
@@ -81,6 +84,12 @@ class SRInferencer:
     instead. int8_tail, int8_levels, int8_enc_up, int8_swin, int8_mlp: the
     int8 serving lane of FeMaSRNet (same state dict).
 
+    mesh: a ('data', 'model') mesh of the run's ranks (model 1): each
+    forward's batch is padded to a multiple of the data axis by repeating
+    its last item, each rank runs its contiguous block, and the outputs
+    are gathered onto every rank. max_tile_batch defaults to the data
+    axis's size (one tile per rank), else 1.
+
     model: serve this live FeMaSRNet as it stands (the JAX SRInferencer's
     model=..., init_merge=False form; validation serves the trainee this
     way): nothing is built, loaded or moved, and the architecture
@@ -94,17 +103,19 @@ class SRInferencer:
     def __init__(self, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  codebook_params: Sequence[Sequence[int]] = ((32, 1024, 512),),
                  scale_factor: int = 4, dtype: torch.dtype = torch.float32,
-                 max_tile_batch: int = 1, device='cuda',
+                 max_tile_batch: Optional[int] = None, device='cuda',
                  int8_tail: bool = False, int8_levels: int = 1,
                  int8_enc_up: bool = False, int8_swin: bool = False,
                  int8_mlp: bool = False, strict: bool = False,
                  lq_stage: bool = True, gt_resolution: int = 256,
                  norm_type: str = 'gn', act_type: str = 'silu',
-                 model: Optional[FeMaSRNet] = None):
+                 model: Optional[FeMaSRNet] = None, mesh=None):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
         self.dtype = dtype
-        self.max_tile_batch = max_tile_batch
+        self.mesh = mesh
+        self._dp = data_size(mesh) if mesh is not None else 1
+        self.max_tile_batch = max_tile_batch or self._dp
         self.live = model is not None
         if self.live:
             self.device = next(model.parameters()).device
@@ -133,6 +144,18 @@ class SRInferencer:
         self.wsz = max(8 // self.scale, 1) * 8
 
     def _run(self, x: torch.Tensor) -> torch.Tensor:
+        """One batch through the model; under a mesh, this rank's block of
+        the batch padded to the data axis, the outputs gathered."""
+        if self.mesh is None:
+            return self._forward(x)
+        b = x.shape[0]
+        pad = (-b) % self._dp
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        out = self._forward(local_slice(x, self.mesh))
+        return gather_batch(out, self.mesh)[:b]
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         was_training = self.model.training
         self.model.eval()
         try:
@@ -245,7 +268,7 @@ def load_inferencer(weight_path: str, scale_factor: int = 4,
                     **kwargs) -> SRInferencer:
     """SRInferencer from a reference-format torch .pth (kwargs go to
     SRInferencer: codebook_params, max_tile_batch, the int8 flags, strict,
-    lq_stage, gt_resolution, norm_type, act_type)."""
+    lq_stage, gt_resolution, norm_type, act_type, mesh)."""
     resolve_device(device)
     sd = load_torch_checkpoint(weight_path)
     return SRInferencer(sd, scale_factor=scale_factor, dtype=dtype,

@@ -67,8 +67,16 @@ def vector_quantize(z: torch.Tensor, codebook: torch.Tensor,
 
 def codebook_perplexity(indices: torch.Tensor, n_e: int) -> torch.Tensor:
     """exp(entropy) of the code-usage distribution of `indices` (f32)."""
-    counts = torch.bincount(indices.reshape(-1).long(),
-                            minlength=n_e).float()
+    return perplexity_of_counts(code_counts(indices, n_e))
+
+
+def code_counts(indices: torch.Tensor, n_e: int) -> torch.Tensor:
+    """How often each of the n_e codes occurs in `indices` (f32)."""
+    return torch.bincount(indices.reshape(-1).long(), minlength=n_e).float()
+
+
+def perplexity_of_counts(counts: torch.Tensor) -> torch.Tensor:
+    """exp(entropy) of a code-usage histogram (f32)."""
     probs = counts / counts.sum().clamp_min(1.0)
     plogp = torch.where(probs > 0, probs * probs.clamp_min(1e-30).log(),
                         torch.zeros_like(probs))

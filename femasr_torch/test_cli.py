@@ -9,7 +9,10 @@ the options; the images go to results/<name>/visualization/<dataset>/
 under the current directory, and on datasets with GT the `val.metrics`
 (psnr, ssim, lpips with `path.pretrain_lpips`, niqe) are logged to
 results/<name>/. The run takes the CUDA card and stops without one;
-`device: cpu` in the options evaluates on the CPU.
+`device: cpu` in the options evaluates on the CPU. Under a launcher
+(`torchrun --nproc_per_node N -m femasr_torch.test_cli -opt ... --launcher
+pytorch`) the ranks share out the images and give the metrics one
+process gives.
 """
 
 from __future__ import annotations
@@ -29,3 +32,5 @@ def main(argv=None, opt=None):
 
 if __name__ == '__main__':
     main(sys.argv[1:])
+    from .parallel.dist_util import shutdown
+    shutdown()

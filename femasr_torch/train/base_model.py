@@ -8,6 +8,11 @@ keys: models/<label>_<iter>.pth holding {'params': state dict} (plus
 package's converters and this package's loaders all read. The training
 state (optimizers, step, EMA, parameters, discriminator spectral vectors,
 RNG states) goes to training_states/<iter>.state.
+
+Data parallel (`opt['dist']`): the trained networks run wrapped in
+DistributedDataParallel (`model_to_device`; the bare networks stay the
+model's own, so nothing unwraps them), the logged values are the mean
+over the ranks (`reduce_loss_dict`), and rank 0 alone writes files.
 """
 
 from __future__ import annotations
@@ -18,7 +23,10 @@ from os import path as osp
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
+from ..parallel.dist_util import get_dist_info
 from ..utils.logger import get_root_logger
 
 
@@ -31,6 +39,41 @@ class BaseModel:
         self.log_dict: Dict[str, float] = {}
         # dataset name -> metric -> {'better', 'val', 'iter'}
         self.best_metric_results: Dict[str, Dict[str, Dict[str, Any]]] = {}
+        self.dist = bool(opt.get('dist', False))
+        self.rank, self.world_size = get_dist_info() if self.dist else (0, 1)
+
+    # -- data parallel ---------------------------------------------------
+
+    def model_to_device(self, net: torch.nn.Module) -> torch.nn.Module:
+        """net on the model's device; in a data-parallel run wrapped in
+        DistributedDataParallel (one device per rank; the options'
+        find_unused_parameters; no buffer broadcast: the only buffers
+        that change, the discriminator's spectral vectors, are computed
+        alike on every rank from the same weights)."""
+        net = net.to(self.device)
+        if not self.dist:
+            return net
+        return DistributedDataParallel(
+            net, device_ids=([self.device.index] if self.device.type == 'cuda'
+                             else None),
+            broadcast_buffers=False,
+            find_unused_parameters=bool(self.opt.get(
+                'find_unused_parameters', False)))
+
+    def reduce_loss_dict(self, loss_dict: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, float]:
+        """The logged values as floats: in a data-parallel run each is the
+        mean over the ranks (one all-reduce), which for means over equal
+        blocks is the mean over the global batch."""
+        if not loss_dict:
+            return {}
+        if not self.dist:
+            return {k: float(v) for k, v in loss_dict.items()}
+        vals = torch.stack([v.detach().float().reshape(())
+                            for v in loss_dict.values()])
+        dist.all_reduce(vals)
+        vals = (vals / self.world_size).tolist()
+        return dict(zip(loss_dict, vals))
 
     # -- validation ------------------------------------------------------
 
@@ -44,8 +87,7 @@ class BaseModel:
                                     save_img)
 
     def dist_validation(self, *args, **kwargs):
-        raise NotImplementedError('validation across processes is not '
-                                  'ported yet (ROADMAP A11, multi-GPU)')
+        raise NotImplementedError
 
     def nondist_validation(self, *args, **kwargs):
         raise NotImplementedError
@@ -106,11 +148,14 @@ class BaseModel:
                      param_key: str = 'params',
                      extra_keys: Optional[Dict[str, Any]] = None) -> str:
         """models/<label>_<iter>.pth ('latest' for -1) holding
-        {param_key: state_dict, **extra_keys}, on the CPU."""
+        {param_key: state_dict, **extra_keys}, on the CPU (rank 0 writes;
+        every rank returns the path)."""
         current_iter = 'latest' if current_iter == -1 else current_iter
         fname = (f'{net_label}_{current_iter}.pth' if current_iter != ''
                  else f'{net_label}.pth')
         path = osp.join(self.opt['path']['models'], fname)
+        if self.rank != 0:
+            return path
         tree = {param_key: _cpu(state_dict)}
         for k, v in (extra_keys or {}).items():
             tree[k] = _cpu(v)
@@ -119,8 +164,9 @@ class BaseModel:
 
     def save_training_state(self, state: Dict[str, Any], epoch: int,
                             current_iter: int) -> None:
-        """training_states/<iter>.state (nothing for iter -1)."""
-        if current_iter == -1:
+        """training_states/<iter>.state (nothing for iter -1; rank 0
+        writes)."""
+        if current_iter == -1 or self.rank != 0:
             return
         path = osp.join(self.opt['path']['training_states'],
                         f'{current_iter}.state')
@@ -129,6 +175,8 @@ class BaseModel:
 
     @staticmethod
     def resume_training_state(path: str) -> Dict[str, Any]:
+        """The saved state on the host, from where every rank copies it
+        onto its own device (RNG states must stay CPU tensors)."""
         return torch.load(path, map_location='cpu', weights_only=True)
 
 

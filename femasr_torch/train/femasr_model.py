@@ -37,17 +37,34 @@ Adam moments, the EMA and every checkpoint stay float32, so a bf16 run
 saves the same .pth as an f32 one. `network_g.use_checkpoint`
 recomputes the Swin blocks' activations in the backward.
 
+Data parallel (`opt['dist']`, one process per device): net_g and net_d
+train wrapped in DistributedDataParallel, which averages their gradients
+over the ranks once per step (the chunks and the discriminator's real
+phase run under no_sync); the G step's GAN term runs the bare
+discriminator, whose frozen parameters get no gradient; the frozen prior,
+VGG19 and the EMA copy stay bare. Each rank trains on its block of the
+global batch; the on-device degradation degrades the whole global batch on
+every rank (the same draws) and keeps the rank's block, so W ranks at
+batch B compute what one process computes at W x B. Logged values are
+means over the ranks, the codebook perplexity that of the global batch.
+Rank 0 writes the checkpoints and the training state, which holds every
+rank's RNG state.
+
 Validation (`validation`, every `val.val_freq` iterations) and offline
 evaluation (test_cli) serve the trainee, or with ema_decay > 0 one eval
 copy holding the EMA weights, through SRInferencer's live-module form
 (no_grad, eval mode, the conv3 tail, attention and search as kernels) in
 network_g's dtype: whole images below 8000^2 px, tiles above. The
 metrics see the output's 8-bit levels in RGB, as tensor2img writes them,
-against the GT as read.
+against the GT as read. `dist_validation` gives rank r the images whose
+index is r modulo the world size; each rank writes its own images, the
+per-image metrics are all-reduced and averaged in image order, so the
+results equal `nondist_validation`'s; rank 0 saves the best networks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from collections import OrderedDict
 from os import path as osp
@@ -55,6 +72,9 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
+from torch.utils.data import default_collate
 
 from ..losses import LPIPSLoss, PerceptualLoss, build_loss
 from ..losses.lpips import convert_lpips_checkpoint
@@ -66,7 +86,9 @@ from ..models.inference import SRInferencer, resolve_device
 from ..models.vgg_arch import (VGGFeatureExtractor, convert_vgg_checkpoint,
                                vgg_truncated_state)
 from ..ops.degradations import degradation_bsrgan
-from ..ops.quantize import codebook_perplexity
+from ..ops.quantize import code_counts, perplexity_of_counts
+from ..parallel.dist_util import all_gather_object
+from ..parallel.mesh import gather_batch, local_slice
 from ..utils.img_util import imwrite, round_8bit
 from ..utils.logger import get_root_logger
 from .base_model import BaseModel
@@ -128,6 +150,15 @@ def optimizer_from_opt(optim_opt: Mapping, params) -> torch.optim.Optimizer:
 
 def _seed_init(seed: int):
     return lambda m: init_weights(m, torch.Generator().manual_seed(seed))
+
+
+def _sync_if(net: torch.nn.Module, sync: bool):
+    """A DDP net's gradients are all-reduced in the backward that follows
+    a forward made with sync true; with sync false they accumulate on the
+    rank (no_sync)."""
+    if sync or not isinstance(net, DistributedDataParallel):
+        return contextlib.nullcontext()
+    return net.no_sync()
 
 
 class FeMaSRModel(BaseModel):
@@ -277,6 +308,19 @@ class FeMaSRModel(BaseModel):
                                         self.trainable_g)
         self.opt_d = optimizer_from_opt(train_opt['optim_d'],
                                         list(self.net_d.parameters()))
+        if (self.dist and self.net_g.use_semantic_loss
+                and not self.use_semantic
+                and not opt.get('find_unused_parameters')):
+            raise ValueError(
+                'network_g.use_semantic_loss with the semantic loss off (no '
+                'path.pretrain_vgg, or semantic_opt.loss_weight 0): '
+                'conv_semantic gets no gradient, which DistributedDataParallel '
+                'refuses; set find_unused_parameters: true, or '
+                'use_semantic_loss: false')
+        # the networks the steps run: DDP wrappers in a data-parallel run
+        # (after the frozen parameters are set: DDP syncs what needs grad)
+        self.net_g_train = self.model_to_device(self.net_g)
+        self.net_d_train = self.model_to_device(self.net_d)
         self.ema_decay = float(train_opt.get('ema_decay', 0) or 0)
         self.ema = ({n: p.detach().clone() for n, p in
                      self.net_g.named_parameters()}
@@ -314,7 +358,7 @@ class FeMaSRModel(BaseModel):
                  gate: bool = True):
         """(total, loss dict, f32 output, first-scale indices) of one
         generator forward in training mode."""
-        out, l_codebook, l_semantic, idx_list = self.net_g(
+        out, l_codebook, l_semantic, idx_list = self.net_g_train(
             gen_in, gt_indices=gt_indices, vgg_feat=vgg_feat, train=True,
             differentiable=True)
         out32 = out.float()
@@ -348,8 +392,9 @@ class FeMaSRModel(BaseModel):
 
     def g_backward(self, lq, gt):
         """The generator's forward and backward over the chunks, gradients
-        left in .grad (averaged over the chunks). Returns (mean total, mean
-        loss dict, output, first-scale indices, prior indices)."""
+        left in .grad (averaged over the chunks, and over the ranks in the
+        last chunk's backward). Returns (mean total, mean loss dict,
+        output, first-scale indices, prior indices)."""
         n = self.chunks(gt.shape[0])
         gt_indices = None
         if self.LQ_stage:
@@ -365,11 +410,13 @@ class FeMaSRModel(BaseModel):
         totals, lds, outs, idxs = [], [], [], []
         for c in range(n):
             sl = slice(c * bs, (c + 1) * bs)
-            total, ld, out, idx = self.g_losses(
-                gen_in[sl], gt[sl],
-                None if gt_indices is None else [g[sl] for g in gt_indices],
-                None if vgg_feat is None else vgg_feat[sl], gate)
-            (total / n).backward()
+            with _sync_if(self.net_g_train, c == n - 1):
+                total, ld, out, idx = self.g_losses(
+                    gen_in[sl], gt[sl],
+                    None if gt_indices is None else [g[sl] for g in
+                                                     gt_indices],
+                    None if vgg_feat is None else vgg_feat[sl], gate)
+                (total / n).backward()
             totals.append(total.detach())
             lds.append({k: v.detach() for k, v in ld.items()})
             outs.append(out.detach())
@@ -380,15 +427,19 @@ class FeMaSRModel(BaseModel):
         return (torch.stack(totals).mean(), mean_ld, torch.cat(outs),
                 torch.cat(idxs), gt_indices)
 
-    def _d_phase(self, data: torch.Tensor, real: bool, n: int):
+    def _d_phase(self, data: torch.Tensor, real: bool, n: int,
+                 sync: bool = True):
         """Hinge loss of one side over n chunks, backward; the first chunk
-        runs the power iteration."""
+        runs the power iteration. With sync, the last chunk's backward
+        all-reduces the discriminator's accumulated gradients."""
         bs = data.shape[0] // n
         losses, preds = [], []
         for c in range(n):
-            pred = self.net_d(data[c * bs:(c + 1) * bs], update=c == 0)
-            loss = self.cri_gan(pred, real, is_disc=True)
-            (loss / n).backward()
+            with _sync_if(self.net_d_train, sync and c == n - 1):
+                pred = self.net_d_train(data[c * bs:(c + 1) * bs],
+                                        update=c == 0)
+                loss = self.cri_gan(pred, real, is_disc=True)
+                (loss / n).backward()
             losses.append(loss.detach())
             preds.append(pred.detach().float().mean())
         return torch.stack(losses).mean(), torch.stack(preds).mean()
@@ -405,14 +456,25 @@ class FeMaSRModel(BaseModel):
             1, np.uint64)[0]
         return torch.Generator(self.device).manual_seed(int(seed))
 
+    def degrade(self, gt: torch.Tensor) -> torch.Tensor:
+        """This step's on-device LQ of the GT batch; in a data-parallel run
+        of the rank's block, degraded as part of the whole global batch."""
+        if not self.dist:
+            return degradation_bsrgan(gt, self.degradation_generator(),
+                                      sf=self.scale)
+        lq = degradation_bsrgan(gather_batch(gt),
+                                self.degradation_generator(), sf=self.scale)
+        return local_slice(lq)
+
     def optimize_parameters(self, current_iter: Optional[int] = None) -> None:
         if self.degrade_on_device:
-            self.lq = degradation_bsrgan(self.gt, self.degradation_generator(),
-                                         sf=self.scale)
+            self.lq = self.degrade(self.gt)
         gate = self.gan_gate()
         self.opt_g.zero_grad(set_to_none=True)
         total, loss_dict, output, idx, _ = self.g_backward(self.lq, self.gt)
-        loss_dict['codebook_perplexity'] = codebook_perplexity(idx, self.n_e)
+        # filled at log time from the code counts of the global batch
+        loss_dict['codebook_perplexity'] = None
+        self._code_counts = code_counts(idx, self.n_e)
         self._set_lr(self.opt_g, self.sched_g)
         self.opt_g.step()
         loss_dict['l_g_total'] = total
@@ -423,7 +485,7 @@ class FeMaSRModel(BaseModel):
                 k: v.clone() for k, v in self.net_d.state_dict().items()
                 if k.endswith(('weight_u', 'weight_v'))}
             self.opt_d.zero_grad(set_to_none=True)
-            l_real, p_real = self._d_phase(self.gt, True, n)
+            l_real, p_real = self._d_phase(self.gt, True, n, sync=False)
             l_fake, p_fake = self._d_phase(output, False, n)
             if gate:
                 self._set_lr(self.opt_d, self.sched_d)
@@ -441,9 +503,18 @@ class FeMaSRModel(BaseModel):
         self._device_log = loss_dict
 
     def get_current_log(self) -> Dict[str, float]:
+        """The last iteration's losses as floats (in a data-parallel run
+        every rank calls this at the same iterations: it all-reduces)."""
         log = getattr(self, '_device_log', None)
         if log is not None:
-            self.log_dict = {k: float(v) for k, v in log.items()}
+            counts = self._code_counts
+            if self.dist:
+                counts = counts.clone()
+                dist.all_reduce(counts)
+            vals = self.reduce_loss_dict({k: v for k, v in log.items()
+                                          if k != 'codebook_perplexity'})
+            vals['codebook_perplexity'] = float(perplexity_of_counts(counts))
+            self.log_dict = {k: vals[k] for k in log}
             self._device_log = None
         return self.log_dict
 
@@ -486,6 +557,11 @@ class FeMaSRModel(BaseModel):
                            save_img: bool = False) -> None:
         self._run_validation(dataloader, current_iter, tb_logger, save_img)
 
+    def dist_validation(self, dataloader, current_iter, tb_logger,
+                        save_img: bool = False) -> None:
+        self._run_validation(dataloader, current_iter, tb_logger, save_img,
+                             shard=True)
+
     def _metric_funcs(self) -> Dict[str, Any]:
         funcs = {}
         for name, mopt in self.opt['val']['metrics'].items():
@@ -510,11 +586,13 @@ class FeMaSRModel(BaseModel):
         return osp.join(vis, dataset_name, f'{img_name}_{suffix}.png')
 
     def _run_validation(self, dataloader, current_iter, tb_logger,
-                        save_img: bool) -> None:
+                        save_img: bool, shard: bool = False) -> None:
         """SR every image of the loader; with `val.metrics`, average each
         metric over the images that have a GT, keep the best records (by
         `val.key_metric`, or per metric when it is absent or skipped) and
-        save net_g_best / net_d_best when they improve."""
+        save net_g_best / net_d_best when they improve. With shard, this
+        rank takes the images whose index is its rank modulo the world
+        size, and a table of every image's metrics is all-reduced."""
         dataset_name = dataloader.dataset.opt['name']
         metric_funcs = (self._metric_funcs()
                         if self.opt['val'].get('metrics') else {})
@@ -522,7 +600,16 @@ class FeMaSRModel(BaseModel):
         if metric_funcs:
             self._initialize_best_metric_results(dataset_name)
         n_gt = 0
-        for val_data in dataloader:
+        if shard:
+            data = dataloader.dataset
+            # per image: its metrics, then 1 if it has a GT
+            table = torch.zeros(len(data), len(metric_funcs) + 1,
+                                dtype=torch.float64)
+            items = ((i, default_collate([data[i]])) for i in
+                     range(self.rank, len(data), self.world_size))
+        else:
+            items = enumerate(dataloader)
+        for i, val_data in items:
             img_name = osp.splitext(osp.basename(val_data['lq_path'][0]))[0]
             # HWC RGB 8-bit levels, on the device
             levels = round_8bit(self.test(val_data['lq']))[0].permute(1, 2, 0)
@@ -531,11 +618,26 @@ class FeMaSRModel(BaseModel):
                         self._save_path(img_name, current_iter,
                                         dataset_name))
             if metric_funcs and 'gt' in val_data:
-                n_gt += 1
                 sr01 = levels / 255.0
                 gt = val_data['gt'][0].permute(1, 2, 0).to(self.device)
+                if shard:
+                    table[i] = torch.tensor(
+                        [fn(sr01, gt) for fn in metric_funcs.values()]
+                        + [1.0], dtype=torch.float64)
+                    continue
+                n_gt += 1
                 for name, fn in metric_funcs.items():
                     self.metric_results[name] += fn(sr01, gt)
+        if shard and metric_funcs:
+            # one rank wrote each row, the others zeros: the sum is exact,
+            # and the images add up in the order nondist_validation adds
+            total = table.to(self.device)
+            dist.all_reduce(total)
+            for row in total.cpu().tolist():
+                if row[-1]:
+                    n_gt += 1
+                    for name, val in zip(metric_funcs, row):
+                        self.metric_results[name] += val
         if not n_gt:                # no GT: nothing to measure
             self.metric_results = {}
             return
@@ -613,6 +715,15 @@ class FeMaSRModel(BaseModel):
     # -- checkpoints -------------------------------------------------------
 
     def save(self, epoch: int, current_iter: int) -> None:
+        """The networks and the training state; in a data-parallel run
+        every rank calls this (the ranks' RNG states are gathered) and
+        rank 0 writes."""
+        rng = {'cpu': torch.get_rng_state()}
+        if self.device.type == 'cuda':
+            rng['cuda'] = torch.cuda.get_rng_state(self.device)
+        rngs = all_gather_object(rng) if self.dist else [rng]
+        if self.rank != 0:
+            return
         self.save_network(self.net_g.state_dict(), 'net_g', current_iter,
                           extra_keys=({'params_ema': self.ema}
                                       if self.ema is not None else None))
@@ -622,14 +733,19 @@ class FeMaSRModel(BaseModel):
                  'params_d': self.net_d.state_dict(),
                  'opt_g': self.opt_g.state_dict(),
                  'opt_d': self.opt_d.state_dict(),
-                 'rng_cpu': torch.get_rng_state()}
+                 'rng_cpu': rng['cpu']}
         if self.ema is not None:
             state['params_g_ema'] = self.ema
-        if self.device.type == 'cuda':
-            state['rng_cuda'] = torch.cuda.get_rng_state(self.device)
+        if 'cuda' in rng:
+            state['rng_cuda'] = rng['cuda']
+        if len(rngs) > 1:
+            state['rng_by_rank'] = rngs
         self.save_training_state(state, epoch, current_iter)
 
     def resume_training(self, state_path: str) -> Dict[str, int]:
+        """Every rank loads the state onto its device and restores its own
+        RNG state (a state saved at another world size gives the ranks it
+        has no state of their seeded streams)."""
         tree = self.resume_training_state(state_path)
         state = tree['state']
         self.net_g.load_state_dict(state['params_g'])
@@ -640,7 +756,12 @@ class FeMaSRModel(BaseModel):
         if self.ema is not None and 'params_g_ema' in state:
             for k, v in state['params_g_ema'].items():
                 self.ema[k].copy_(v)
-        torch.set_rng_state(state['rng_cpu'])
-        if 'rng_cuda' in state and self.device.type == 'cuda':
-            torch.cuda.set_rng_state(state['rng_cuda'], self.device)
+        rngs = state.get('rng_by_rank') or [
+            {'cpu': state['rng_cpu'], **({'cuda': state['rng_cuda']}
+                                         if 'rng_cuda' in state else {})}]
+        if self.rank < len(rngs):
+            torch.set_rng_state(rngs[self.rank]['cpu'])
+            if 'cuda' in rngs[self.rank] and self.device.type == 'cuda':
+                torch.cuda.set_rng_state(rngs[self.rank]['cuda'],
+                                         self.device)
         return {'epoch': int(tree['epoch']), 'iter': int(tree['iter'])}

@@ -13,6 +13,14 @@ experiment. A resumed run sees the batches the uninterrupted run would
 have seen: the loader restarts at the epoch and position of the resumed
 iteration. `test_pipeline` evaluates `path.pretrain_network_g` on each
 dataset of the options.
+
+Data parallel (`--launcher pytorch|slurm`): every rank runs this loop on
+its block of each global batch of batch_size_per_gpu x world size, so an
+epoch has len x ratio // (batch x world) iterations and the resume skip
+counts global positions; rank 0 alone makes the experiment directory,
+writes checkpoints, the log and TensorBoard (the others wait for it where
+they read what it wrote), and validation and evaluation share the images
+out among the ranks (`FeMaSRModel.dist_validation`).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from ..models.inference import resolve_device
 from ..utils.logger import (AvgTimer, MessageLogger, get_env_info,
                             get_root_logger, init_tb_logger)
 from ..utils.misc import disable_tf32, get_time_str, make_exp_dirs, scandir
+from ..parallel.dist_util import barrier
 from ..utils.options import copy_opt_file, dict2str, parse_options
 from .femasr_model import FeMaSRModel
 
@@ -48,7 +57,8 @@ def load_resume_state(opt: dict) -> Optional[str]:
 
 
 def init_tb(opt: dict, logger):
-    if not opt['logger'].get('use_tb_logger') or 'debug' in opt['name']:
+    if (not opt['logger'].get('use_tb_logger') or 'debug' in opt['name']
+            or opt['rank'] != 0):
         return None
     try:
         return init_tb_logger(osp.join(opt['root_path'], 'tb_logger',
@@ -76,6 +86,7 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
         opt['path']['log'], f"train_{opt['name']}_{get_time_str()}.log"))
     logger.info(get_env_info())
     logger.info(dict2str(opt))
+    log_world(opt, logger)
     disable_tf32(logger)
     tb_logger = init_tb(opt, logger)
 
@@ -91,17 +102,21 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
         elif phase != 'train':
             raise ValueError(f'Dataset phase {phase} is not recognized.')
     val_opt = opt.get('val') if val_loader is not None else None
+    world = opt['world_size']
     loader, sampler = build_train_loader(
         train_set, dataset_opt, opt['manual_seed'],
-        pin_memory=model.device.type == 'cuda')
+        pin_memory=model.device.type == 'cuda', rank=opt['rank'],
+        world_size=world)
     total_iters = int(float(opt['train']['total_iter']))
+    global_batch = dataset_opt['batch_size_per_gpu'] * world
     per_epoch = len(train_set) * dataset_opt.get('dataset_enlarge_ratio', 1) \
-        // dataset_opt['batch_size_per_gpu']
+        // global_batch
     if per_epoch == 0:
         raise ValueError('the train set holds fewer images than one batch')
     logger.info(f'Training statistics:\n\tNumber of train images: '
-                f'{len(train_set)}\n\tBatch size: '
-                f"{dataset_opt['batch_size_per_gpu']}\n\tIters per epoch: "
+                f'{len(train_set)}\n\tBatch size per device: '
+                f"{dataset_opt['batch_size_per_gpu']}\n\tWorld size: "
+                f'{world}\n\tIters per epoch: '
                 f'{per_epoch}\n\tTotal epochs: '
                 f'{math.ceil(total_iters / per_epoch)}; iters: {total_iters}.')
 
@@ -115,7 +130,7 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
     start_time = time.time()
     lg = opt['logger']
     while current_iter < total_iters:
-        sampler.start(epoch, skip * dataset_opt['batch_size_per_gpu'])
+        sampler.start(epoch, skip * global_batch)
         skip = 0
         for train_data in loader:
             data_timer.record()
@@ -164,7 +179,24 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
                          val_opt.get('save_img', False))
     if tb_logger is not None:
         tb_logger.close()
+    barrier()       # every file of the run is written
     return model
+
+
+def log_world(opt: dict, logger) -> None:
+    """The run's world size; one process on a host with more cards says
+    how to train on all of them."""
+    if opt['dist']:
+        logger.info(f"Data parallel: rank {opt['rank']} of "
+                    f"{opt['world_size']} on {opt['device']}")
+        return
+    import torch
+    n = torch.cuda.device_count() if opt['device'].startswith('cuda') else 0
+    if n > 1:
+        cli = 'train_cli' if opt['is_train'] else 'test_cli'
+        logger.info(f'{n} cards are visible and this run uses one; to use '
+                    f'all: torchrun --nproc_per_node {n} -m '
+                    f'femasr_torch.{cli} -opt <options> --launcher pytorch')
 
 
 def test_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
@@ -179,6 +211,7 @@ def test_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
         opt['path']['log'], f"test_{opt['name']}_{get_time_str()}.log"))
     logger.info(get_env_info())
     logger.info(dict2str(opt))
+    log_world(opt, logger)
     disable_tf32(logger)
     loaders = []
     for _, dataset_opt in sorted(opt['datasets'].items()):
@@ -191,4 +224,5 @@ def test_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
         logger.info(f"Testing {loader.dataset.opt['name']}...")
         model.validation(loader, current_iter=opt['name'], tb_logger=None,
                          save_img=opt['val'].get('save_img', True))
+    barrier()
     return model

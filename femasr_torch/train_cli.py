@@ -7,6 +7,15 @@ Options as for the JAX package's train.py (YAML, or JSON without PyYAML);
 experiments/<name>/ under the current directory. The run takes the CUDA
 card and stops without one; `device: cpu` in the options trains on the
 CPU. `model_type` must be FeMaSRModel.
+
+Data parallel, one process per card (DistributedDataParallel; each rank
+takes batch_size_per_gpu of every global batch):
+
+    torchrun --nproc_per_node 2 -m femasr_torch.train_cli \
+        -opt options/train_FeMaSR_LQ_stage.yml --launcher pytorch
+
+or under Slurm, `srun ... python -m femasr_torch.train_cli -opt ...
+--launcher slurm`. `--dist_backend gloo` picks gloo over NCCL.
 """
 
 from __future__ import annotations
@@ -25,3 +34,5 @@ def main(argv=None, opt=None):
 
 if __name__ == '__main__':
     main(sys.argv[1:])
+    from .parallel.dist_util import shutdown
+    shutdown()

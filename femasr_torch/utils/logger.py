@@ -3,7 +3,9 @@
 
 Besides the text log, `MessageLogger` appends each logged iteration as one
 JSON object to `<experiment>/train_log.jsonl` (iteration, learning rates,
-times, losses), for scripts that read a run back.
+times, losses), for scripts that read a run back. In a data-parallel run
+rank 0 logs at INFO, writes the log file and the JSON lines; the other
+ranks log errors only.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import logging
 import time
 from os import path as osp
 from typing import Optional
+
+from ..parallel.dist_util import get_dist_info
 
 initialized_logger = {}
 
@@ -85,8 +89,9 @@ class MessageLogger:
                 label = f'losses/{k}' if k.startswith('l_') else k
                 self.tb_logger.add_scalar(label, v, current_iter)
         self.logger.info(message)
-        with open(self.json_path, 'a') as f:
-            f.write(json.dumps(record) + '\n')
+        if _rank() == 0:
+            with open(self.json_path, 'a') as f:
+                f.write(json.dumps(record) + '\n')
 
 
 def init_tb_logger(log_dir: str):
@@ -97,23 +102,38 @@ def init_tb_logger(log_dir: str):
 def get_root_logger(logger_name: str = 'femasr_torch',
                     log_level: int = logging.INFO,
                     log_file: Optional[str] = None) -> logging.Logger:
-    """The package's logger: to stderr, and to `log_file` when the first
-    call that sets up the logger gives one."""
+    """The package's logger: to stderr, and to `log_file` when a call
+    gives one. Off rank 0 of a data-parallel run it logs errors only and
+    writes no file."""
     logger = logging.getLogger(logger_name)
+    if _rank() != 0:
+        if logger_name not in initialized_logger:
+            _add_stream(logger)
+            initialized_logger[logger_name] = True
+        logger.setLevel(logging.ERROR)
+        return logger
     if logger_name in initialized_logger:
         if log_file is not None:
             _add_file(logger, log_file, log_level)
         return logger
-    fmt = logging.Formatter('%(asctime)s %(levelname)s: %(message)s')
-    stream = logging.StreamHandler()
-    stream.setFormatter(fmt)
-    logger.addHandler(stream)
-    logger.propagate = False
+    _add_stream(logger)
     logger.setLevel(log_level)
     if log_file is not None:
         _add_file(logger, log_file, log_level)
     initialized_logger[logger_name] = True
     return logger
+
+
+def _rank() -> int:
+    return get_dist_info()[0]
+
+
+def _add_stream(logger: logging.Logger) -> None:
+    stream = logging.StreamHandler()
+    stream.setFormatter(logging.Formatter(
+        '%(asctime)s %(levelname)s: %(message)s'))
+    logger.addHandler(stream)
+    logger.propagate = False
 
 
 def _add_file(logger: logging.Logger, log_file: str, level: int) -> None:

@@ -11,6 +11,8 @@ from typing import Iterator, Optional, Tuple, Union
 
 import torch
 
+from ..parallel.dist_util import barrier, get_dist_info
+
 IMG_EXTENSIONS = ('.jpg', '.JPG', '.jpeg', '.JPEG', '.png', '.PNG', '.ppm',
                   '.PPM', '.bmp', '.BMP', '.tif', '.TIF', '.tiff', '.TIFF',
                   '.webp', '.WEBP')
@@ -31,7 +33,14 @@ def mkdir_and_rename(path: str) -> None:
 
 def make_exp_dirs(opt: dict) -> None:
     """experiments/<name>/{models, training_states, visualization} for
-    training, results/<name>/visualization for evaluation."""
+    training, results/<name>/visualization for evaluation: made by rank 0,
+    which the other ranks then wait for."""
+    if get_dist_info()[0] == 0:
+        _make_exp_dirs(opt)
+    barrier()
+
+
+def _make_exp_dirs(opt: dict) -> None:
     path_opt = dict(opt['path'])
     mkdir_and_rename(path_opt.pop('experiments_root' if opt['is_train']
                                   else 'results_root'))

@@ -1,12 +1,16 @@
 """Training and test options: the YAML (or JSON) schema and CLI of the JAX
-package (counterpart of femasr_tpu/utils/options.py), for one device.
+package (counterpart of femasr_tpu/utils/options.py).
 
 `parse_options` reads the file (`!!float` tags and anchors as PyYAML reads
 them; a `.json` file needs no PyYAML) or takes a ready dict, applies
 `--force_yml` overrides, refuses what the port does not carry (see
-`check_port_options`), and fills in the paths: experiments/<name>/ for
-training, results/<name>/ for evaluation (is_train=False). The device is
-`device` in the options: CUDA by default, the CPU only when asked.
+`check_port_options`), joins the run's process group under a launcher
+(`--launcher pytorch|slurm`: one process per device, data parallel),
+seeds the global random streams with manual_seed + rank, and fills in the
+paths: experiments/<name>/ for training, results/<name>/ for evaluation
+(is_train=False). The device is `device` in the options: CUDA by default
+(under a launcher cuda:LOCAL_RANK; `cuda:i` puts every rank on card i),
+the CPU only when asked.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ import random
 import sys
 from os import path as osp
 from typing import Any, Optional
+
+from ..parallel.dist_util import (LAUNCHERS, broadcast_object, get_dist_info,
+                                  init_dist, master_only)
+from ..parallel.mesh import TP_LATER
 
 # network_g keys of the JAX FeMaSRNet that the port builds; vq_backend and
 # vq_index_f32 are accepted because the port's search is always the f32
@@ -110,11 +118,7 @@ def check_port_options(opt: dict) -> None:
                    f'package ({what}); the port does not carry it: remove '
                    'the key')
     if int(opt.get('model_parallel', 1) or 1) > 1:
-        refuse('model_parallel > 1 (tensor parallelism) is not ported yet '
-               '(ROADMAP A11, multi-GPU)')
-    num_gpu = opt.get('num_gpu', 'auto')
-    if num_gpu != 'auto' and int(num_gpu) > 1:
-        refuse('num_gpu > 1 is not ported yet (ROADMAP A11, multi-GPU)')
+        refuse(f'model_parallel > 1: {TP_LATER}')
     for net, keys in (('network_g', NETWORK_G_KEYS),
                       ('network_d', NETWORK_D_KEYS)):
         nopt = opt.get(net) or {}
@@ -130,9 +134,51 @@ def check_port_options(opt: dict) -> None:
         refuse('network_g.vq_index_f32: false (a bfloat16 codebook search) '
                'is not ported: the port searches in float32 at every dtype; '
                'remove the key or set it true')
-    if opt.get('dist'):
-        refuse('dist (training and validation across processes) is not '
-               'ported yet (ROADMAP A11, multi-GPU)')
+
+
+def torchrun_command(n, is_train: bool) -> str:
+    cli = 'train_cli' if is_train else 'test_cli'
+    return (f'torchrun --nproc_per_node {n} -m femasr_torch.{cli} -opt '
+            '<options> --launcher pytorch')
+
+
+def resolve_world(opt: dict, launcher: str, is_train: bool) -> None:
+    """opt['dist'], opt['rank'], opt['world_size'] and num_gpu from the
+    launcher: under one, `num_gpu: auto` is the world size and an explicit
+    value must equal it; without one, auto is 1 and num_gpu > 1 or
+    `dist: true` is refused with the command that starts the ranks."""
+    rank, world = get_dist_info()
+    num_gpu = opt.get('num_gpu', 'auto')
+    num_gpu = 'auto' if num_gpu is None else num_gpu
+    if launcher == 'none':
+        if opt.get('dist'):
+            raise OptionError('dist: true needs one process per device, '
+                              'started by a launcher: '
+                              + torchrun_command('N', is_train))
+        if num_gpu != 'auto' and int(num_gpu) > 1:
+            raise OptionError(
+                f'num_gpu: {num_gpu} needs one process per device, started '
+                f'by a launcher: {torchrun_command(num_gpu, is_train)} '
+                '(or Slurm with --launcher slurm)')
+        opt.update(dist=False, rank=0, world_size=1,
+                   num_gpu=1 if num_gpu == 'auto' else int(num_gpu))
+        return
+    if num_gpu != 'auto' and int(num_gpu) != world:
+        raise OptionError(f'num_gpu: {num_gpu}, but the launcher started '
+                          f'{world} processes: set num_gpu: auto or start '
+                          f'{num_gpu} ({torchrun_command(num_gpu, is_train)})')
+    opt.update(dist=True, rank=rank, world_size=world, num_gpu=world)
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global random streams (the port
+    draws its own randomness from explicit generators; this keeps any
+    other draw reproducible per rank)."""
+    import numpy as np
+    import torch
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def parse_options(root_path: str, is_train: bool = True,
@@ -141,9 +187,15 @@ def parse_options(root_path: str, is_train: bool = True,
     parser = argparse.ArgumentParser()
     parser.add_argument('-opt', type=str, required=opt is None,
                         help='Path to the options YAML or JSON file.')
-    parser.add_argument('--launcher', choices=['none'], default='none',
-                        help='one process on one device (multi-GPU: '
-                             'ROADMAP A11)')
+    parser.add_argument('--launcher', choices=list(LAUNCHERS),
+                        default='none',
+                        help='none: one process on one device; pytorch: one '
+                             'process per device started by torchrun; '
+                             'slurm: started by srun (data parallel)')
+    parser.add_argument('--dist_backend', choices=['nccl', 'gloo'],
+                        default=None,
+                        help='with a launcher: the process group\'s backend '
+                             '(default nccl on the card, gloo on the CPU)')
     parser.add_argument('--auto_resume', action='store_true')
     parser.add_argument('--debug', action='store_true')
     parser.add_argument('--force_yml', nargs='+', action='append',
@@ -155,12 +207,20 @@ def parse_options(root_path: str, is_train: bool = True,
     opt = copy.deepcopy(opt) if opt is not None else load_options(args.opt)
     apply_force_yml(opt, force)
     check_port_options(opt)
+    opt.setdefault('device', 'cuda')
+    if args.launcher == 'none' and args.dist_backend is not None:
+        raise OptionError('--dist_backend needs a launcher (--launcher '
+                          'pytorch or slurm)')
+    opt['device'] = str(init_dist(args.launcher, args.dist_backend,
+                                  opt['device']))
+    resolve_world(opt, args.launcher, is_train)
 
+    # one seed for every rank, drawn on rank 0 when the file has none
     if opt.get('manual_seed') is None:
-        opt['manual_seed'] = random.randint(1, 10000)
+        opt['manual_seed'] = broadcast_object(random.randint(1, 10000))
+    set_random_seed(int(opt['manual_seed']) + opt['rank'])
     opt.update(auto_resume=args.auto_resume, is_train=is_train,
                root_path=root_path)
-    opt.setdefault('device', 'cuda')
     if args.debug and not opt['name'].startswith('debug'):
         opt['name'] = 'debug_' + opt['name']
 
@@ -195,10 +255,11 @@ def parse_options(root_path: str, is_train: bool = True,
     return opt, args
 
 
+@master_only
 def copy_opt_file(opt_file: Optional[str], opt: dict,
                   experiments_root: str) -> None:
     """Archive the options (the file, or the dict as JSON) and the command
-    line in the experiment directory."""
+    line in the experiment directory (rank 0)."""
     os.makedirs(experiments_root, exist_ok=True)
     cmd = ' '.join(sys.argv)
     if opt_file is None:

@@ -45,7 +45,7 @@ for name in ('jax', 'flax', 'femasr_tpu'):
     sys.modules[name] = None           # any import of these now fails
 import torch
 import femasr_torch, femasr_torch.kernels, femasr_torch.inference_cli
-import femasr_torch.train_cli, femasr_torch.test_cli
+import femasr_torch.train_cli, femasr_torch.test_cli, femasr_torch.parallel
 from femasr_torch.models import SRInferencer
 from femasr_torch.models.inference import load_inferencer
 OPT = {'name': 'probe', 'model_type': 'FeMaSRModel', 'manual_seed': 0,

@@ -548,3 +548,86 @@ def test_degradation_on_card_matches_cpu_without_sync(gen):
             x = y
         assert torch.equal(x, lq)
     assert touched <= 0.01 * blocks, (touched, blocks)
+
+
+def test_ddp_world1_nccl_step_equals_the_bare_step(gen, tmp_path,
+                                                   monkeypatch):
+    """One f32 LQ-stage G step and D step of a SMALL-codebook model in a
+    world-1 NCCL process group (init_dist('pytorch'): net_g and net_d in
+    DistributedDataParallel) against the same step without one: the frozen
+    prior and the trainee's search run B1 5 and B3 2 times through DDP as
+    without; the losses and every gradient (all-reduced over the one rank)
+    within 1e-6 of their max, or twice the spread of two bare models'
+    steps."""
+    import socket
+
+    import torch.distributed as dist
+
+    from femasr_torch import kernels
+    from femasr_torch.models import FeMaSRNet, init_weights
+    from femasr_torch.parallel import init_dist
+    from femasr_torch.train import FeMaSRModel
+
+    small = [[32, 16, 32]]
+    hq = FeMaSRNet(small, LQ_stage=False)
+    init_weights(hq, torch.Generator().manual_seed(1))
+    torch.save({'params': hq.state_dict()}, str(tmp_path / 'hq.pth'))
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                     MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+
+    def model(dist_on):
+        return FeMaSRModel({
+            'name': 'ddp_card', 'is_train': True, 'device': 'cuda:0',
+            'manual_seed': 0, 'scale': 4, 'dist': dist_on,
+            'network_g': {'type': 'FeMaSRNet', 'codebook_params': small,
+                          'LQ_stage': True, 'scale_factor': 4},
+            'network_d': {'type': 'UNetDiscriminatorSN', 'num_feat': 16},
+            'path': {'pretrain_network_hq': str(tmp_path / 'hq.pth')},
+            'train': {
+                'optim_g': {'type': 'Adam', 'lr': 1e-4},
+                'optim_d': {'type': 'Adam', 'lr': 1e-4},
+                'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1.0},
+                'gan_opt': {'type': 'GANLoss', 'gan_type': 'hinge',
+                            'loss_weight': 0.1},
+                'codebook_opt': {'loss_weight': 1.0}}})
+
+    def step(m):
+        kernels.reset_launches()
+        m.opt_g.zero_grad(set_to_none=True)
+        m.opt_d.zero_grad(set_to_none=True)
+        total, _, out, _, _ = m.g_backward(lq, gt)
+        l_real = m._d_phase(gt, True, 1, sync=False)[0]
+        l_fake = m._d_phase(out, False, 1)[0]
+        torch.cuda.synchronize()
+        grads = {f'{net}.{n}': p.grad.clone()
+                 for net, mod in (('g', m.net_g), ('d', m.net_d))
+                 for n, p in mod.named_parameters() if p.grad is not None}
+        losses = torch.stack([total, l_real, l_fake]).cpu()
+        return losses, grads, kernels.launch_counts()
+
+    g = torch.Generator().manual_seed(5)
+    lq = torch.rand((2, 3, 64, 64), generator=g).cuda()
+    gt = torch.rand((2, 3, 256, 256), generator=g).cuda()
+    runs = [step(model(False)), step(model(False))]   # the spread
+    init_dist('pytorch', device='cuda:0')
+    try:
+        assert dist.get_backend() == 'nccl'
+        ddp = model(True)
+        assert type(ddp.net_g_train).__name__ == 'DistributedDataParallel'
+        runs.append(step(ddp))
+    finally:
+        dist.destroy_process_group()
+    (l0, g0, c0), (l1, g1, _), (l2, g2, c2) = runs
+    assert c0 == c2 and c2['conv3'] == 5 and c2['vq_argmin'] == 2
+
+    def of_max(a, b):
+        return max(((a[n] - b[n]).abs().max()
+                    / b[n].abs().max().clamp_min(1e-30)).item() for n in b)
+    spread = of_max(g1, g0)
+    assert g2.keys() == g0.keys() and len(g0) > 300
+    assert of_max(g2, g0) <= max(1e-6, 2 * spread), (of_max(g2, g0), spread)
+    assert ((l2 - l0).abs() <= 1e-6 * l0.abs()).all()

@@ -172,7 +172,7 @@ def test_generator_ema_tracks_the_weights(folder):
      'vq_index_f32'),
     (lambda o: o['network_d'].update(dtype='float16'), 'not ported'),
     (lambda o: o['network_g'].update(ws2d_tail=True), 'ws2d_tail'),
-    (lambda o: o.update(dist=True, val={'val_freq': 2}), 'A11'),
+    (lambda o: o.update(dist=True, val={'val_freq': 2}), 'launcher'),
 ], ids=['chain_steps', 'flat_optimizer', 'attn_pack', 'model_parallel',
         'bf16', 'float16', 'serving_knob', 'val'])
 def test_options_the_port_does_not_carry_are_refused(folder, edit, match):

@@ -3,6 +3,13 @@ on the CPU vs the PyTorch port). Inputs are made with numpy and handed to
 both; parameters are carried JAX -> torch through the port's copy of the
 flax-path -> torch-key table."""
 
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
 import jax
 import numpy as np
 import torch
@@ -49,3 +56,72 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().numpy().transpose(0, 2, 3, 1)
+
+
+# -- data-parallel runs on the CPU (tests/test_torch_dist*.py) ---------------
+
+DIST_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'torch_dist_worker.py')
+LAUNCHER_ENV = ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                'MASTER_PORT')
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(jobs, out, world: int = 2) -> dict:
+    """Start the worker's `jobs` (tests/torch_dist_worker.py) in `world`
+    gloo ranks on the CPU, with torchrun's variables on a free local port,
+    or with world 0 as one process without a launcher; each process on one
+    thread. `wait_ranks` collects them."""
+    os.makedirs(out, exist_ok=True)
+    plan = os.path.join(out, f'plan_w{world}_{len(os.listdir(out))}.json')
+    with open(plan, 'w') as f:
+        json.dump({'jobs': jobs, 'out': out}, f)
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    env.update(OMP_NUM_THREADS='1', MKL_NUM_THREADS='1')
+    port = free_port()
+    procs = []
+    for rank in range(max(world, 1)):
+        e = dict(env)
+        if world:
+            e.update(RANK=str(rank), WORLD_SIZE=str(world),
+                     LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                     MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, DIST_WORKER, plan], env=e, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    return {'procs': procs, 'jobs': jobs, 'out': out}
+
+
+def wait_ranks(*runs, timeout: float = 120.0) -> list:
+    """Wait for started runs; a rank that fails or outlives `timeout`
+    seconds fails the caller, and every process is killed. Returns per run
+    {job name: [result of rank 0, ...]}."""
+    deadline = time.monotonic() + timeout
+    procs = [p for run in runs for p in run['procs']]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, (
+            f'a rank failed (rc {p.returncode}):\n{log[-3000:]}')
+    return [{job['name']: [torch.load(os.path.join(
+        run['out'], f"{job['name']}.rank{r}.pt"), weights_only=False)
+        for r in range(len(run['procs']))] for job in run['jobs']}
+        for run in runs]
+
+
+def run_ranks(jobs, out, world: int = 2, timeout: float = 120.0) -> dict:
+    """start_ranks + wait_ranks of one run."""
+    return wait_ranks(start_ranks(jobs, out, world), timeout=timeout)[0]
