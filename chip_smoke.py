@@ -105,7 +105,27 @@ Phases:
      the CLI's main and counts the kernels' launches per rank (B1 5 and B3
      2 per iteration, act_bf16 20 in bf16; per serving forward and
      evaluation image B1 5, B2 24, B3 1);
-  9. print a JSON line of per-kernel numbers (and the training numbers),
+  9. tensor parallelism (A11b), run after the dp phase (`tp_phase`), in
+     ranks started as the dp phase starts them (two: NCCL on two cards,
+     else gloo on cuda:0; four for dp=2 x tp=2): (a) the two serving
+     images through `inference_cli --tp 2 --launcher pytorch` (float lane
+     f32, int8 lane bf16; PNGs within one level / equal) and whole-image
+     probes against one process: float f32 indices equal but for
+     certified near-ties and the output within 2e-5 of its max, float
+     bf16 PSNR vs the f32 plain output within 0.5 dB of tp=1's, the int8
+     lane (never split) bit for bit; (b) in phase 2, B3 on 512 of the
+     1024 codes (two shards' (distance, index) pairs reduced by B3's rule
+     equal the whole search bit for bit; B3's distance output held to the
+     plain version) and B2 on 4 heads, C=128, timed; (c) the f32 LQ config
+     with SGD at tp=2 x batch 4 for 2 iterations and at dp=2 x tp=2 for 1
+     against world 1 (4x the spread of two world-1 runs, never under
+     1e-5), every tensor held whole bit-equal across the ranks, the HQ
+     stage at tp=2 for 1 iteration (both codebook shards move), per-rank
+     parameter bytes and peak memory; (d) a resume at tp=2 bit for bit
+     and the tp=2 net_g .pth served strictly at tp=1 as at tp=2; (e)
+     launches per rank on every path (each rank launches what one process
+     does);
+ 10. print a JSON line of per-kernel numbers (and the training numbers),
      the card's name and power limit, and last `{"ok": true, "device":
      {...}}`.
 
@@ -117,6 +137,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import hashlib
 import json
 import os
 import re
@@ -181,6 +202,9 @@ TPU_FUNCTIONS = {
 }
 # B4's bf16 Swin qkv (packed weight) must take at most this long
 MM_QKV_MAX_MS = 0.2
+# B3's distance output against the plain version's, of the largest
+# distance (both f32, summed in other orders)
+VQ_DIST_RTOL = 1e-5
 
 
 class PhaseError(RuntimeError):
@@ -430,6 +454,21 @@ def check_vq_argmin(dev, results):
           f'bound_ms={bms:.4f} ({by})', flush=True)
     require(agree >= 0.9999 and worst_gap <= 1e-5,
             f'vq_argmin disagrees: agreement {agree}, gap {worst_gap}')
+    # the distance the kernel compared (the split codebook's reduction
+    # reads it): the same indices, and the plain version's distance at
+    # each token within f32 rounding of its size
+    with counting_off(mod):
+        idx_d, dist_k = mod.vq_argmin(z, cb, with_dist=True)
+    _, dist_p = mod.vq_argmin_plain(z, cb, with_dist=True)
+    out_err = (dist_k - dist_p).abs().max().item()
+    dist_rel = out_err / dist_p.abs().max().item()
+    print(f'[vq_argmin] with its distance: indices equal to the plain '
+          f'call\'s {torch.equal(idx_d, idx)}; distance vs the plain '
+          f'version max_abs_err={out_err:.3e} (relative {dist_rel:.2e}, '
+          f'tol {VQ_DIST_RTOL})', flush=True)
+    require(torch.equal(idx_d, idx) and dist_rel <= VQ_DIST_RTOL,
+            f'vq_argmin distance output: indices equal '
+            f'{torch.equal(idx_d, idx)}, relative error {dist_rel}')
     # bf16 tokens are searched in f32: same indices as the f32 plain
     # version on the bf16-rounded tokens
     zb = z.to(torch.bfloat16)
@@ -443,6 +482,7 @@ def check_vq_argmin(dev, results):
                          f'({lib_ms} ms)')
     results['vq_argmin'] = dict(
         max_abs_err=dist_err, index_agreement=agree, ms=ms,
+        dist_output_rel_err=dist_rel,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
         dtype='float32', shape='z (69696,512) x codebook (1024,512)',
         splits=splits, ms_by_splits=by_splits)
@@ -2096,6 +2136,7 @@ def train_phase(dev, work: str) -> dict:
         stage: out[stage]['timing']['ms_per_iteration']
         for stage in ('lq', 'hq')}))
     out['dp'] = dp_phase(dev, work, inputs, vals)
+    out['tp'] = tp_phase(dev, work, inputs)
     return out
 
 
@@ -2701,6 +2742,21 @@ DP_LOSSES = TRAIN_LOSSES + ('l_g_total', 'codebook_perplexity',
                             'out_d_real', 'out_d_fake')
 
 
+def lq_train_options(inputs: dict, batch: int, iters: int,
+                     bf16: bool = False, sgd: bool = False, **train) -> dict:
+    """The LQ release config on the seeded folder at `batch` per rank for
+    `iters` iterations, with SGD (DP_B_OPTIM) for parameter checks."""
+    opt = release_options(LQ_YML, 'dp', inputs, iters, 1e9)
+    opt['path'] = {'pretrain_network_hq': inputs['hq'],
+                   'pretrain_lpips': inputs['lpips'], 'strict_load': False}
+    opt['datasets']['train']['batch_size_per_gpu'] = batch
+    opt['train'].update(train)
+    if sgd:
+        opt['train'].update(optim_g=dict(DP_B_OPTIM),
+                            optim_d=dict(DP_B_OPTIM))
+    return with_precision(opt, bf16)
+
+
 def deterministic(on: bool) -> None:
     torch.use_deterministic_algorithms(on, warn_only=True)
     torch.backends.cudnn.deterministic = on
@@ -2726,13 +2782,15 @@ def rank_worker(plan_path: str) -> int:
     results = {}
     for job in plan['jobs']:
         deterministic(job['deterministic'])
-        module = importlib.import_module(job['module'])
         cwd = os.getcwd()
         os.chdir(job['cwd'])
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
         try:
-            out = module.main(job['argv'])
+            out = (tp_probe(job) if job['module'] == 'probe' else
+                   importlib.import_module(job['module']).main(job['argv']))
         finally:
             os.chdir(cwd)
         dev = (torch.device('cuda', torch.cuda.current_device())
@@ -2741,12 +2799,30 @@ def rank_worker(plan_path: str) -> int:
         r = dict(launches=kernels.launch_counts(),
                  seconds=time.perf_counter() - t0, device=str(dev),
                  backend=dist.get_backend() if dist.is_initialized()
-                 else None)
-        if job['module'].endswith('test_cli'):
+                 else None,
+                 peak_memory_bytes=(torch.cuda.max_memory_allocated()
+                                    if dev.type == 'cuda' else None))
+        if job['module'] == 'probe':
+            r['probe'] = out
+        elif job['module'].endswith('test_cli'):
             r['metrics'] = dict(out.metric_results)
         elif job['module'].endswith('train_cli'):
             r['ddp'] = type(out.net_g_train).__name__
             r['device'] = str(out.device)
+            # tensor parallelism: the rank's split tensors, the bytes of
+            # its net_g, and a digest of every tensor it holds whole
+            r['split'] = len(out.layout_g)
+            r['param_bytes_g'] = sum(p.numel() * p.element_size()
+                                     for p in out.net_g.parameters())
+            whole = {f'{net}.{k}': v.detach().cpu().contiguous()
+                     for net, m in (('net_g', out.net_g),
+                                    ('net_d', out.net_d))
+                     for k, v in m.state_dict().items()
+                     if net == 'net_d' or k not in out.layout_g}
+            r['whole_digests'] = {k: hashlib.sha1(v.numpy().tobytes())
+                                  .hexdigest() for k, v in whole.items()}
+            r['whole_sums'] = {k: v.double().sum().item()
+                               for k, v in whole.items()}
             if job.get('timing'):
                 deterministic(False)
                 with open(job['opt']) as f:
@@ -2815,12 +2891,15 @@ def launch_ranks(work: str, name: str, jobs: list, nproc: int,
             for r in range(max(nproc, 1))]
 
 
-def read_run(work: str, exp: str) -> tuple:
-    """A training run's log records and its saved networks (latest)."""
+def read_run(work: str, exp: str, at: str = 'latest') -> tuple:
+    """A training run's log records and its saved networks (latest, or as
+    saved at iteration `at`, with the records up to it)."""
     root = os.path.join(work, 'experiments', exp)
     with open(os.path.join(root, 'train_log.jsonl')) as f:
         records = [json.loads(line) for line in f]
-    nets = {k: torch.load(os.path.join(root, 'models', f'{k}_latest.pth'),
+    if at != 'latest':
+        records = [r for r in records if r['iter'] <= int(at)]
+    nets = {k: torch.load(os.path.join(root, 'models', f'{k}_{at}.pth'),
                           weights_only=True)['params']
             for k in ('net_g', 'net_d')}
     return records, nets
@@ -2895,17 +2974,20 @@ def degradation_by_batch(dev, batches=(8, 16)) -> dict:
     return out
 
 
-def dp_arrangement(dev) -> dict:
-    """Two ranks: NCCL on two cards, or, on one card, gloo with both ranks
+def dp_arrangement(dev, n: int = 2) -> dict:
+    """n ranks: NCCL on n cards, or, on fewer cards, gloo with every rank
     on cuda:0 (NCCL refuses two ranks on one device). The choice is this
     script's; the package takes what it is given. (On the CPU, for a
     rehearsal: gloo.)"""
+    words = {2: 'two', 4: 'four'}[n]
     if dev.type == 'cpu':
-        return dict(name='gloo on the CPU', device='cpu', argv=[])
-    if torch.cuda.device_count() >= 2:
-        return dict(name='NCCL on two cards', device='cuda', argv=[])
-    return dict(name='gloo, two ranks sharing cuda:0', device='cuda:0',
-                argv=['--dist_backend', 'gloo'])
+        return dict(name='gloo on the CPU', device='cpu', argv=[],
+                    backend='gloo')
+    if torch.cuda.device_count() >= n:
+        return dict(name=f'NCCL on {words} cards', device='cuda', argv=[],
+                    backend=None)
+    return dict(name=f'gloo, {words} ranks sharing cuda:0', device='cuda:0',
+                argv=['--dist_backend', 'gloo'], backend='gloo')
 
 
 def dp_phase(dev, work: str, inputs: dict, vals: dict) -> dict:
@@ -2935,16 +3017,7 @@ def dp_phase(dev, work: str, inputs: dict, vals: dict) -> dict:
                     timing=timing, opt=path)
 
     def lq_opt(batch, bf16=False, sgd=False, **train):
-        opt = release_options(LQ_YML, 'dp', inputs, DP_ITERS, 1e9)
-        opt['path'] = {'pretrain_network_hq': inputs['hq'],
-                       'pretrain_lpips': inputs['lpips'],
-                       'strict_load': False}
-        opt['datasets']['train']['batch_size_per_gpu'] = batch
-        opt['train'].update(train)
-        if sgd:
-            opt['train'].update(optim_g=dict(DP_B_OPTIM),
-                                optim_d=dict(DP_B_OPTIM))
-        return with_precision(opt, bf16)
+        return lq_train_options(inputs, batch, DP_ITERS, bf16, sgd, **train)
 
     def serve_job(name, device, *argv):
         return dict(name=name, module='femasr_torch.inference_cli', cwd=work,
@@ -3101,6 +3174,424 @@ def dp_phase(dev, work: str, inputs: dict, vals: dict) -> dict:
     return out
 
 
+# -- phase 9: tensor parallelism (A11b) ----------------------------------------
+
+TP = 2
+TP_ITERS, TP_BATCH = 2, 4
+TP_SERVE_RTOL = 2e-5    # (a) f32 float lane vs one process, of the max
+# the whole-image probes: (name, lane, dtype, through the plain versions)
+TP_RUNS = (('f32', 'float', 'float32', False),
+           ('bf16', 'float', 'bfloat16', False),
+           ('int8', 'int8', 'bfloat16', False))
+
+
+def check_tp_kernels(dev, results) -> None:
+    """(b) The kernels at the shapes a tp=2 rank gives them on the main
+    path: B3 on 512 of the 1024 codes, the two shards' (distance, index)
+    pairs reduced by B3's rule equal to the whole search bit for bit; B2
+    on 4 of the 8 heads (C = 128) in bf16 with the shift mask, against
+    its plain version. Times, bounds and library times of both."""
+    from femasr_torch.kernels import vq_argmin as vq
+    from femasr_torch.kernels import window_attention as wa
+    from femasr_torch.kernels.tolerance import bf16_agreement
+    from femasr_torch.ops.swin import shifted_window_mask
+    from femasr_torch.parallel.tensor_parallel import first_minimum
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, k, c = 69696, 1024, 512
+    z = torch.randn((n, c), generator=g, device=dev)
+    cb = torch.randn((k, c), generator=g, device=dev)
+    half = k // TP
+    with counting_off(vq):
+        whole = vq.vq_argmin(z, cb)
+        parts = [vq.vq_argmin(z, cb[r * half:(r + 1) * half], with_dist=True)
+                 for r in range(TP)]
+        split = first_minimum([d for _, d in parts],
+                              [i.long() + r * half
+                               for r, (i, _) in enumerate(parts)])
+        sync(dev)
+        shard = cb[:half].contiguous()
+        ms = time_ms(lambda: vq.vq_argmin(z, shard, with_dist=True))
+    plain_ms = time_ms(lambda: vq.vq_argmin_plain(z, shard, with_dist=True))
+    lib_ms = time_ms(lambda: torch.cdist(z, shard).min(1))
+    bms, by = bound_ms(nbytes(z, shard, parts[0][0], parts[0][1]),
+                       2.0 * n * half * c + 2.0 * half * c, torch.float32)
+    equal = torch.equal(split.to(torch.int32), whole)
+    print(f'[tp] (b) vq_argmin split over {TP} ranks ({half} codes each): '
+          f'the reduced (distance, index) pairs equal the whole search bit '
+          f'for bit {equal} ({(split.to(torch.int32) != whole).sum().item()}'
+          f' differ); one shard with its distance ms={ms:.4f} '
+          f'plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (cdist().min) '
+          f'bound_ms={bms:.4f} ({by})', flush=True)
+    require(equal, 'vq_argmin: the split search differs from the whole one')
+    results['vq_argmin']['tp_shard'] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+        bound_by=by, split_equals_whole=equal,
+        shape=f'z ({n},{c}) x codebook ({half},{c}), distance out')
+
+    b_, nt, nh, hd = 1089, 64, 8 // TP, 32
+    ch = nh * hd
+    qkv = torch.randn((b_, nt, 3 * ch), generator=g,
+                      device=dev).to(torch.bfloat16)
+    q = qkv[..., :ch] * torch.tensor(hd ** -0.5, dtype=torch.bfloat16)
+    kk, v = qkv[..., ch:2 * ch], qkv[..., 2 * ch:]
+    bias = torch.randn((nh, nt, nt), generator=g, device=dev) * 0.02
+    mask = torch.from_numpy(shifted_window_mask(264, 264, 8, 4)).to(dev)
+    with counting_off(wa):
+        y = wa.window_attention(q, kk, v, bias, mask, nh)
+        ref = wa.window_attention_plain(q, kk, v, bias, mask, nh)
+        ok, err, beyond = bf16_agreement(
+            y, ref, 2.0 ** -8 * v.float().abs().max().item())
+        ms = time_ms(lambda: wa.window_attention(q, kk, v, bias, mask, nh))
+    plain_ms = time_ms(lambda: wa.window_attention_plain(q, kk, v, bias,
+                                                         mask, nh))
+    heads = [t.reshape(b_, nt, nh, hd).transpose(1, 2) for t in (q, kk, v)]
+    am = (bias[None] + mask[:, None]).to(torch.bfloat16).expand(
+        b_, nh, nt, nt)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *heads, attn_mask=am, scale=1.0))
+    bms, by = bound_ms(nbytes(q, kk, v, y, bias, mask),
+                       4.0 * b_ * nh * nt * nt * hd, torch.bfloat16)
+    print(f'[tp] (b) window_attention on {nh} heads (C={ch}), bf16, mask: '
+          f'max_abs_err={err:.3e} ({beyond:.2e} of outputs beyond one ulp) '
+          f'ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} '
+          f'bound_ms={bms:.4f} ({by})', flush=True)
+    require(ok, f'window_attention on {nh} heads disagrees with plain '
+                f'({err})')
+    results['window_attention']['tp_shard'] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+        bound_by=by, max_abs_err=err, share_beyond_one_ulp=beyond,
+        shape=f'q,k,v ({b_},{nt},{ch}), {nh} heads, mask ({b_},{nt},{nt})')
+
+
+def tp_probe(job: dict) -> dict:
+    """A probe job of the tp phase (in a rank under torchrun, or alone):
+    the whole image's forward through SRInferencer on the job's mesh, the
+    state dict loaded strictly, for each of job['runs'] (name, lane,
+    dtype, plain); the outputs and indices (with 'tokens', the f32 run's
+    quantizer input too) saved to <out>.rank<r>.pt. Its launches are
+    comparisons: they do not count."""
+    import cv2
+
+    from femasr_torch import kernels
+    from femasr_torch.models import SRInferencer
+    from femasr_torch.models.convert import load_torch_checkpoint
+    from femasr_torch.models.inference import flip_pad
+    from femasr_torch.parallel import create_mesh, init_dist
+    dev, mesh = torch.device(job['device']), None
+    if 'RANK' in os.environ:
+        dev = init_dist('pytorch', job['backend'], job['device'])
+        mesh = create_mesh(model=job['tp'], device_type=dev.type)
+    sd = load_torch_checkpoint(job['weights'])
+    img = cv2.cvtColor(cv2.imread(job['image']), cv2.COLOR_BGR2RGB)
+    img = img.astype(np.float32) / 255.0
+    side = img.shape[0]
+    saved = {}
+    for name, lane, dtype, plain in job['runs']:
+        dt = getattr(torch, dtype)
+        sr = SRInferencer(sd, device=dev, dtype=dt, mesh=mesh, strict=True,
+                          codebook_params=job['codebook'], **LANES[lane][1])
+        x = torch.from_numpy(img.transpose(2, 0, 1).copy())[None].to(dev)
+        pad = (side // sr.wsz + 1) * sr.wsz - side
+        xp = flip_pad(x, pad, pad).to(dt)
+        tokens = {}
+        hook = sr.model.before_quant_group[0].register_forward_hook(
+            lambda m, i, o: tokens.update(z=o))
+        with torch.inference_mode(), \
+                counting_off(*kernels.MODULES.values()), \
+                plain_kernels() if plain else contextlib.nullcontext():
+            out, _, _, idx = sr.model(xp)
+        hook.remove()
+        rec = dict(out=out.float().clamp(0, 1)[:, :, :4 * side, :4 * side]
+                   .cpu(), idx=idx[0].cpu())
+        if job.get('tokens') and name == 'f32':
+            z = tokens['z']
+            rec['z'] = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1]).float(
+            ).cpu()
+        saved[name] = rec
+        del sr, out, tokens
+    path = f"{job['out']}.rank{int(os.environ.get('RANK', 0))}.pt"
+    torch.save(saved, path)
+    return {'path': path}
+
+
+def tp_f32_serving(ref: dict, got: dict, cb: torch.Tensor) -> dict:
+    """(a), (d): a split f32 float-lane forward against one process's:
+    indices equal but where B3's near-tie rule certifies a tie; the output
+    within TP_SERVE_RTOL of its max when every index agrees, else within
+    DP_SERVE_TOL on average (a flipped code moves its neighbourhood)."""
+    agree, gap = near_ties(ref['z'], cb, got['idx'], ref['idx'])
+    diff = (got['out'] - ref['out']).abs()
+    rel = (diff.max() / ref['out'].abs().max()).item()
+    ok = agree >= 0.9999 and gap <= 1e-5 and (
+        rel <= TP_SERVE_RTOL if agree == 1.0
+        else diff.mean().item() <= DP_SERVE_TOL)
+    return dict(index_agreement=agree, worst_gap=gap, max_rel=rel,
+                mean_abs=diff.mean().item(), ok=ok)
+
+
+def tp_phase(dev, work: str, inputs: dict) -> dict:
+    """Tensor parallelism (A11b) through the CLIs at tp=2 (`--tp 2`,
+    `model_parallel: 2`) against one process: (a) serving, the float lane
+    in f32 and bf16 and the int8 lane, through inference_cli and
+    whole-image probes; (c) LQ training (f32, SGD) at tp=2 and at dp=2 x
+    tp=2 against world 1, the HQ stage at tp=2; (d) a resume at tp=2 and
+    the tp=2 .pth served at tp=1; (e) launches per rank. (b) is
+    `check_tp_kernels`."""
+    import cv2
+
+    from femasr_torch.models.convert import load_torch_checkpoint
+    card = gpu_line()
+    work = os.path.join(work, 'tp')
+    os.makedirs(work)
+    arr, arr4 = dp_arrangement(dev, 2), dp_arrangement(dev, 4)
+    base = dev.type
+    launcher = ['--launcher', 'pytorch']
+    _, pth, in_dir, sizes = serving_inputs(work)
+    out = {'arrangement': arr['name'], 'arrangement_dp2_tp2': arr4['name'],
+           'card': card}
+
+    def train_job(name, opt, argv=(), device=base):
+        opt = dict(opt, name=name, device=device)
+        path = os.path.join(work, f'{name}.json')
+        with open(path, 'w') as f:
+            json.dump(opt, f)
+        return dict(name=name, module='femasr_torch.train_cli', cwd=work,
+                    argv=['-opt', path, *argv], deterministic=True,
+                    timing=0, opt=path)
+
+    def lq(batch, iters=TP_ITERS, split=False, resume=None, **train):
+        """f32 SGD, a checkpoint every iteration; split: model_parallel."""
+        opt = lq_train_options(inputs, batch, iters, sgd=True, **train)
+        opt['logger']['save_checkpoint_freq'] = 1
+        if split:
+            opt['model_parallel'] = TP
+        if resume:
+            opt['path']['resume_state'] = resume
+        return opt
+
+    hq = release_options(HQ_YML, 'tp_hq', inputs, 1, 1e9)
+    hq['path'] = {'pretrain_network_g': inputs['hq'],
+                  'pretrain_lpips': inputs['lpips'],
+                  'pretrain_vgg': inputs['vgg19'], 'strict_load': False}
+    hq['datasets']['train']['batch_size_per_gpu'] = TP_BATCH
+
+    def serve_job(name, lane, device, precision, *argv):
+        return dict(name=name, module='femasr_torch.inference_cli', cwd=work,
+                    deterministic=False, argv=[
+                        '-i', in_dir, '-w', pth, '-o',
+                        os.path.join(work, name), '-s', '4', '--precision',
+                        precision, '--device', device, '--strict_load',
+                        *LANES[lane][0], *argv])
+
+    def probe_job(name, device, runs, weights=pth,
+                  codebook=((32, 1024, 512),), **kw):
+        return dict(name=name, module='probe', cwd=work, deterministic=False,
+                    device=device, weights=weights, runs=runs,
+                    codebook=codebook, image=os.path.join(in_dir, 'whole.png'),
+                    out=os.path.join(work, name), **kw)
+
+    split = dict(tp=TP, backend=arr['backend'])
+    tp_args = ['--dp', '1', '--tp', str(TP), *launcher, *arr['argv']]
+    tp_pth = os.path.join(work, 'experiments', 'tp_lq', 'models',
+                          'net_g_latest.pth')
+    state = os.path.join(work, 'experiments', 'tp_lq', 'training_states',
+                         '1.state')
+    trained = lq(TP_BATCH)['network_g']['codebook_params']
+    torch.cuda.empty_cache()
+    # tp_warm first: a process keeps the cuDNN plan it first chose for a
+    # convolution, and chooses among plans by its cached free memory, so
+    # the uninterrupted and the resumed run that follow reuse one plan set
+    two = launch_ranks(work, 'tp2', [
+        train_job('tp_warm', lq(TP_BATCH, iters=1, split=True),
+                  launcher + arr['argv'], arr['device']),
+        train_job('tp_lq', lq(TP_BATCH, split=True), launcher + arr['argv'],
+                  arr['device']),
+        train_job('tp_lq_again', lq(TP_BATCH, split=True, resume=state),
+                  launcher + arr['argv'], arr['device']),
+        train_job('tp_hq', dict(hq, model_parallel=TP),
+                  launcher + arr['argv'], arr['device']),
+        serve_job('tp_float', 'float', arr['device'], 'f32', *tp_args),
+        serve_job('tp_int8', 'int8', arr['device'], 'bf16', *tp_args),
+        probe_job('tp_probe', arr['device'], TP_RUNS, **split),
+        probe_job('tp_probe_pth', arr['device'], TP_RUNS[:1], tp_pth,
+                  trained, **split)], TP, card)
+    one = launch_ranks(work, 'tp1', [
+        train_job('w1_lq', lq(TP_BATCH)),
+        train_job('w1_lq_chunks', lq(TP_BATCH, grad_accum_chunks=2)),
+        serve_job('w1_float', 'float', base, 'f32'),
+        serve_job('w1_int8', 'int8', base, 'bf16'),
+        probe_job('w1_probe', base, TP_RUNS + (
+            ('f32_plain', 'float', 'float32', True),), tokens=True),
+        probe_job('w1_probe_pth', base, TP_RUNS[:1], tp_pth, trained,
+                  tokens=True)], 0, card)[0]
+    four = launch_ranks(work, 'tp4', [train_job(
+        'tp4_lq', lq(TP_BATCH // 2, iters=1, split=True),
+        launcher + arr4['argv'], arr4['device'])], 2 * TP, card)
+
+    # (a) serving
+    cb = load_torch_checkpoint(pth)['quantize_group.0.embedding.weight']
+    ref = torch.load(one['w1_probe']['probe']['path'])
+    got = [torch.load(two[r]['tp_probe']['probe']['path'])
+           for r in range(TP)]
+    psnr1 = psnr_db(ref['bf16']['out'], ref['f32_plain']['out'])
+    a = []
+    for r, g in enumerate(got):
+        f32 = tp_f32_serving(ref['f32'], g['f32'], cb)
+        bf16 = dict(psnr_db=psnr_db(g['bf16']['out'], ref['f32_plain']['out']),
+                    psnr_tp1_db=psnr1)
+        int8 = dict(bit_for_bit=torch.equal(g['int8']['out'],
+                                            ref['int8']['out'])
+                    and torch.equal(g['int8']['idx'], ref['int8']['idx']))
+        a.append(dict(f32=f32, bf16=bf16, int8=int8, ranks_equal=all(
+            torch.equal(g[k]['out'], got[0][k]['out']) for k in g)))
+        print(f'[tp] (a) rank {r}, 512px whole image, tp={TP} vs one '
+              f'process: float f32 index agreement '
+              f"{f32['index_agreement']:.6f} (worst gap {f32['worst_gap']:.2e}"
+              f"), output max {f32['max_rel']:.3e} of its max (tol "
+              f"{TP_SERVE_RTOL}), mean {f32['mean_abs']:.3e}; float bf16 "
+              f"PSNR vs the f32 plain output {bf16['psnr_db']:.3f} dB (tp=1 "
+              f'{psnr1:.3f}, slack {BF16_PSNR_SLACK_DB}); int8 lane bit for '
+              f"bit {int8['bit_for_bit']}; ranks equal "
+              f"{a[-1]['ranks_equal']}", flush=True)
+        require(f32['ok'], f'(a) f32 float lane at tp={TP}: {f32}')
+        require(bf16['psnr_db'] >= psnr1 - BF16_PSNR_SLACK_DB,
+                f'(a) bf16 float lane at tp={TP}: {bf16}')
+        require(int8['bit_for_bit'], f'(a) int8 lane at tp={TP} differs')
+        require(a[-1]['ranks_equal'], '(a) the ranks served other outputs')
+    images = {}
+    for lane in ('float', 'int8'):
+        for name in sizes:
+            x = cv2.imread(os.path.join(work, f'w1_{lane}', name))
+            y = cv2.imread(os.path.join(work, f'tp_{lane}', name))
+            images[f'{lane} {name}'] = int(np.abs(
+                x.astype(int) - y.astype(int)).max())
+        counts = [two[r][f'tp_{lane}']['launches'] for r in range(TP)]
+        want = one[f'w1_{lane}']['launches']
+        print(f'[tp] (a) inference_cli {lane} lane --tp {TP} '
+              f"({'f32' if lane == 'float' else 'bf16'}, {arr['name']}): "
+              f'launches per rank {counts} (one process {want}); wall '
+              f"{two[0][f'tp_{lane}']['seconds']:.1f} s vs "
+              f"{one[f'w1_{lane}']['seconds']:.1f} s: a correctness run, not "
+              f'a scaling number | {card}', flush=True)
+        require(all(c == want for c in counts),
+                f'(a) {lane} launches per rank {counts}, one process {want}')
+        for k in LANES[lane][2]:
+            require(want[k] > 0 or (lane == 'float' and k == 'act_bf16'),
+                    f'(a) {lane} lane: {k} not launched')
+    print(f'[tp] (a) PNGs, largest level difference from one process: '
+          f'{images} (float f32 <= 1, int8 0)', flush=True)
+    require(all(v <= (1 if k.startswith('float') else 0)
+                for k, v in images.items()), f'(a) PNGs differ: {images}')
+    out['a'] = dict(ranks=a, png_max_levels=images, launches_per_rank={
+        lane: [two[r][f'tp_{lane}']['launches'] for r in range(TP)]
+        for lane in ('float', 'int8')})
+
+    # (c) training
+    w1 = read_run(work, 'w1_lq')
+    spread = run_diff(w1, read_run(work, 'w1_lq_chunks'))
+    bound = {k: max(DP_B_SPREADS * spread[k], DP_B_FLOOR)
+             for k in ('losses_rel', 'params_rel')}
+    tp_run = read_run(work, 'tp_lq')
+    c = run_diff(w1, tp_run)
+    c4 = run_diff(read_run(work, 'w1_lq', at='1'), read_run(work, 'tp4_lq'))
+    check_losses(read_run(work, 'tp4_lq')[0], 'dp2 x tp2 LQ')
+    ranks = [two[r]['tp_lq'] for r in range(TP)]
+    ranks4 = [four[r]['tp4_lq'] for r in range(2 * TP)]
+    for name, rs, iters in (('tp=2', ranks, TP_ITERS),
+                            ('dp=2 x tp=2', ranks4, 1)):
+        want = {k: TRAIN_LAUNCHES['lq'].get(k, 0) * iters
+                for k in rs[0]['launches']}
+        differ = sorted({k for r in rs for k, h in r['whole_digests'].items()
+                         if h != rs[0]['whole_digests'][k]})
+        require(all(r['launches'] == want and r['split'] == 169
+                    for r in rs) and not differ,
+                f'(c) {name}: launches {[r["launches"] for r in rs]} '
+                f'(expected {want}), split tensors '
+                f'{[r["split"] for r in rs]}; {len(differ)} tensors held '
+                'whole differ across the ranks, e.g. ' + ', '.join(
+                    f"{k} (sums {[r['whole_sums'][k] for r in rs]})"
+                    for k in differ[:8]))
+    w1r = one['w1_lq']
+    print(f'[tp] (c) f32 LQ (SGD), batch {TP_BATCH}, {TP_ITERS} iterations, '
+          f"tp={TP} ({arr['name']}) vs world 1: losses {c['losses_rel']:.2e} "
+          f"(bound {bound['losses_rel']:.2e}), parameters "
+          f"{c['params_rel']:.2e} (bound {bound['params_rel']:.2e}, worst "
+          f"{c['worst_tensor']}); dp=2 x tp=2 ({arr4['name']}) after 1 "
+          f"iteration: losses {c4['losses_rel']:.2e}, parameters "
+          f"{c4['params_rel']:.2e} ({c4['worst_tensor']}); the spread of two "
+          f"world-1 runs: {spread['losses_rel']:.2e}, "
+          f"{spread['params_rel']:.2e}; every tensor held whole is bit-equal "
+          f'across the model ranks; launches per rank '
+          f"{[r['launches'] for r in ranks]}", flush=True)
+    def gib(r):
+        peak = r['peak_memory_bytes']
+        return 'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'
+    print(f"[tp] (c) net_g per rank at tp={TP}: "
+          f"{ranks[0]['param_bytes_g'] / 2**20:.1f} MiB of parameters, peak "
+          f"{[gib(r) for r in ranks]}; tp=1: "
+          f"{w1r['param_bytes_g'] / 2**20:.1f} MiB, peak {gib(w1r)} (batch "
+          f'{TP_BATCH}, f32, the LQ run) | {card}', flush=True)
+    for name, d in (('tp=2', c), ('dp=2 x tp=2', c4)):
+        require(d['losses_rel'] <= bound['losses_rel']
+                and d['params_rel'] <= bound['params_rel'],
+                f'(c) {name} off world 1 by {d}, bound {bound}')
+    hq_records, hq_nets = read_run(work, 'tp_hq')
+    check_losses(hq_records, 'tp HQ')
+    key = 'quantize_group.0.embedding.weight'
+    moved = (hq_nets['net_g'][key] != load_torch_checkpoint(
+        inputs['hq'])[key]).any(1)
+    shards_moved = [bool(moved[r * len(moved) // TP:
+                               (r + 1) * len(moved) // TP].any())
+                    for r in range(TP)]
+    print(f'[tp] (c) HQ stage at tp={TP}, 1 iteration: losses '
+          f"{ {k: v for k, v in hq_records[-1].items() if k.startswith('l_')} }"
+          f'; codebook shards updated {shards_moved}; launches per rank '
+          f"{[two[r]['tp_hq']['launches'] for r in range(TP)]}", flush=True)
+    require(all(shards_moved), f'(c) HQ codebook shards moved {shards_moved}')
+    out['c'] = dict(
+        diff=c, diff_dp2_tp2=c4, spread=spread, bound=bound,
+        param_bytes_g=dict(tp2=ranks[0]['param_bytes_g'],
+                           tp1=w1r['param_bytes_g']),
+        peak_memory_bytes=dict(tp2=[r['peak_memory_bytes'] for r in ranks],
+                               tp1=w1r['peak_memory_bytes']),
+        launches_per_rank=dict(
+            lq=[r['launches'] for r in ranks],
+            hq=[two[r]['tp_hq']['launches'] for r in range(TP)],
+            dp2_tp2=[r['launches'] for r in ranks4]))
+
+    # (d) checkpoints
+    records, nets = tp_run
+    again = read_run(work, 'tp_lq_again')
+    d = run_diff(([r for r in records if r['iter'] > 1], nets), again)
+    ref_pth = torch.load(one['w1_probe_pth']['probe']['path'])
+    pth_cmp = [tp_f32_serving(ref_pth['f32'], torch.load(
+        two[r]['tp_probe_pth']['probe']['path'])['f32'],
+        load_torch_checkpoint(tp_pth)[key]) for r in range(TP)]
+    print(f'[tp] (d) resumed at tp={TP} from iteration 1: bit for bit '
+          f"{d['bit_for_bit']} (losses {d['losses_rel']:.2e}, parameters "
+          f"{d['params_rel']:.2e}); the tp={TP} net_g .pth served at tp=1 "
+          f'(strict) vs at tp={TP}: {pth_cmp}', flush=True)
+    require(d['bit_for_bit'], f'(d) the resume at tp={TP} differs: {d}')
+    require(all(p['ok'] for p in pth_cmp), f'(d) .pth at tp=1: {pth_cmp}')
+    out['d'] = dict(resume=d, pth_at_tp1=pth_cmp)
+    return out
+
+
+def tp_launches(tp: dict, name: str) -> dict:
+    """A kernel's launches per rank on the tp phase's paths."""
+    return dict(
+        serving_float_f32_per_rank=[
+            r[name] for r in tp['a']['launches_per_rank']['float']],
+        serving_int8_bf16_per_rank=[
+            r[name] for r in tp['a']['launches_per_rank']['int8']],
+        lq_training_per_rank_per_iteration=[
+            r[name] / TP_ITERS for r in tp['c']['launches_per_rank']['lq']],
+        hq_training_per_rank_per_iteration=[
+            r[name] for r in tp['c']['launches_per_rank']['hq']],
+        dp2_tp2_lq_per_rank_per_iteration=[
+            r[name] for r in tp['c']['launches_per_rank']['dp2_tp2']])
+
+
 def tensor_core_counts() -> dict:
     """Tensor-core instructions in the SASS of each kernel library, from
     cuobjdump: HMMA / IMMA (mma.sync, float / integer), HGMMA / IGMMA
@@ -3182,6 +3673,7 @@ def main() -> int:
     check_conv3(dev, results)
     check_window_attention(dev, results)
     check_vq_argmin(dev, results)
+    check_tp_kernels(dev, results)
     check_matmul_w8a8(dev, results)
     check_matmul_w8a8_q(dev, results)
     check_conv3_w8a8(dev, results)
@@ -3225,6 +3717,8 @@ def main() -> int:
                 for stage in ('lq', 'hq')},
             # the data-parallel runs', per rank (dp phase)
             launches_dp=dp_launches(train['dp'], name),
+            # the tensor-parallel runs', per rank (tp phase)
+            launches_tp=tp_launches(train['tp'], name),
             # the validation path's, per image, and test_cli's
             launches_validation=dict(
                 {f'{stage}_per_image': train[stage][

@@ -36,6 +36,15 @@
 // per token and vq_merge takes the first minimum over the ranges in
 // increasing order. Tokens arrive as f32 with C a multiple of 32 (the
 // wrapper casts and zero-pads, which changes no distance).
+//
+// Optionally (a non-null `dist`) the kernel also writes each token's
+// winning distance, the very value it compared: a codebook split over
+// tensor-parallel ranks reduces the ranks' (distance, index) pairs by the
+// same first-minimum rule, and a distance recomputed in another summation
+// order could decide a near-tie across ranks differently. A code's
+// distance depends on that code and token only (c2 in index order, the
+// dot product in channel order), so the split search equals the whole
+// one bit for bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -78,8 +87,8 @@ __device__ __forceinline__ void commit() {
 __global__ void __launch_bounds__(NT, 1) vq_tile_argmin(
     const float* __restrict__ z, const float* __restrict__ cb,
     const float* __restrict__ c2, float* __restrict__ part_v,
-    int* __restrict__ part_i, int* __restrict__ idx, int N, int K, int C,
-    int tiles_per_split) {
+    int* __restrict__ part_i, int* __restrict__ idx, float* __restrict__ dist,
+    int N, int K, int C, int tiles_per_split) {
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x;
   const int tx = t & 15;
@@ -193,6 +202,7 @@ __global__ void __launch_bounds__(NT, 1) vq_tile_argmin(
     if (tx == 0 && n < N) {
       if (gridDim.y == 1) {
         idx[n] = bi;
+        if (dist != nullptr) dist[n] = v;
       } else {
         part_v[(size_t)blockIdx.y * N + n] = v;
         part_i[(size_t)blockIdx.y * N + n] = bi;
@@ -204,7 +214,7 @@ __global__ void __launch_bounds__(NT, 1) vq_tile_argmin(
 // first minimum over the code ranges, visited in increasing order
 __global__ void vq_merge(const float* __restrict__ part_v,
                          const int* __restrict__ part_i, int* __restrict__ idx,
-                         int N, int splits) {
+                         float* __restrict__ dist, int N, int splits) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   float bv = part_v[n];
@@ -217,6 +227,7 @@ __global__ void vq_merge(const float* __restrict__ part_v,
     }
   }
   idx[n] = bi;
+  if (dist != nullptr) dist[n] = bv;
 }
 
 }  // namespace
@@ -239,12 +250,13 @@ extern "C" int femasr_vq_slots() {
 
 // z: (N, C) f32, cb: (K, C) f32, C % 32 == 0; c2: (K,) f32 scratch;
 // part_v/part_i: (splits, N) f32/int32 scratch (unused when splits == 1);
-// idx: (N,) int32. The codebook's ceil(K / 128) tiles are split into
-// `splits` ranges of tiles_per_split tiles (the last may be shorter).
+// idx: (N,) int32; dist: (N,) f32 or null. The codebook's ceil(K / 128)
+// tiles are split into `splits` ranges of tiles_per_split tiles (the last
+// may be shorter).
 extern "C" int femasr_vq_argmin(const void* z, const void* cb, void* c2,
-                                void* part_v, void* part_i, void* idx, int N,
-                                int K, int C, int splits, int tiles_per_split,
-                                void* stream) {
+                                void* part_v, void* part_i, void* idx,
+                                void* dist, int N, int K, int C, int splits,
+                                int tiles_per_split, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (C % CC != 0 || splits < 1 || tiles_per_split < 1 ||
       (splits - 1) * tiles_per_split >= (K + TK - 1) / TK)
@@ -258,11 +270,11 @@ extern "C" int femasr_vq_argmin(const void* z, const void* cb, void* c2,
   dim3 grid((N + TN - 1) / TN, splits);
   vq_tile_argmin<<<grid, NT, SMEM, s>>>(
       (const float*)z, (const float*)cb, (const float*)c2, (float*)part_v,
-      (int*)part_i, (int*)idx, N, K, C, tiles_per_split);
+      (int*)part_i, (int*)idx, (float*)dist, N, K, C, tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   vq_merge<<<(N + 255) / 256, 256, 0, s>>>((const float*)part_v,
-                                           (const int*)part_i, (int*)idx, N,
-                                           splits);
+                                           (const int*)part_i, (int*)idx,
+                                           (float*)dist, N, splits);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,13 @@ Data-parallel serving, one process per card (each forward's batch is
 sharded over the ranks; rank 0 writes the images):
     torchrun --nproc_per_node 2 -m femasr_torch.inference_cli -i ./testset \
         -w FeMaSR_SRX4_model_g.pth -o results_x4/ --dp 2 --launcher pytorch
+
+Tensor-parallel serving (the Swin linears by head and hidden width and the
+codebook by codes split over --tp ranks, which run each forward together;
+--dp x --tp = the number of processes):
+    torchrun --nproc_per_node 4 -m femasr_torch.inference_cli -i ./testset \
+        -w FeMaSR_SRX4_model_g.pth -o results_x4/ --dp 2 --tp 2 \
+        --launcher pytorch
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument('--tile_pad', type=int, default=16)
     parser.add_argument('--tile_batch', type=int, default=None,
                         help='Tiles per batched forward (default 1; with '
-                             '--dp one tile per rank)')
+                             '--dp one tile per data rank)')
     parser.add_argument('--precision', type=str, default='bf16',
                         choices=['bf16', 'f32'],
                         help='Compute dtype (parameters stay f32)')
@@ -79,8 +86,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              'of this many ranks (the world size of '
                              '--launcher pytorch|slurm)')
     parser.add_argument('--tp', type=int, default=1,
-                        help='tensor-parallel axis size (only 1: ROADMAP '
-                             'A11b)')
+                        help='>1: split the model over this many ranks of '
+                             'each data group (the mesh\'s model axis; '
+                             '--dp x --tp = the world size of --launcher '
+                             'pytorch|slurm)')
     parser.add_argument('--launcher', choices=['none', 'pytorch', 'slurm'],
                         default='none',
                         help='pytorch: one process per card started by '
@@ -93,32 +102,40 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def serving_mesh(args: argparse.Namespace):
-    """Join the launcher's process group and build the --dp mesh (None for
-    one process); refuses --tp > 1 and a --dp other than the world size.
-    Sets args.device to this rank's device."""
+    """Join the launcher's process group and build the --dp x --tp mesh
+    (None for one process); refuses --dp or --tp above 1 without a
+    launcher, and a --dp x --tp other than the world size. Sets
+    args.device to this rank's device."""
     from .parallel.dist_util import get_dist_info, init_dist
-    from .parallel.mesh import TP_LATER, create_mesh
-    if args.tp > 1:
-        raise SystemExit(f'--tp {args.tp}: {TP_LATER}')
-    command = (f'torchrun --nproc_per_node {max(args.dp, 2)} -m '
-               f'femasr_torch.inference_cli ... --dp {max(args.dp, 2)} '
-               '--launcher pytorch')
+    from .parallel.mesh import create_mesh
+    if args.tp < 1:
+        raise SystemExit(f'--tp {args.tp}: give 1 or more')
+    dp = max(args.dp, 1 if args.tp > 1 else 2)
+    n = dp * args.tp
+    command = (f'torchrun --nproc_per_node {n} -m '
+               f'femasr_torch.inference_cli ... --dp {dp}'
+               + (f' --tp {args.tp}' if args.tp > 1 else '')
+               + ' --launcher pytorch')
     if args.launcher == 'none':
         if args.dist_backend is not None:
             raise SystemExit('--dist_backend needs a launcher (--launcher '
                              'pytorch or slurm)')
-        if args.dp > 1:
-            raise SystemExit(f'--dp {args.dp} needs one process per rank, '
-                             f'started by a launcher: {command}')
+        if args.dp > 1 or args.tp > 1:
+            raise SystemExit(f'--dp {args.dp} --tp {args.tp} needs one '
+                             'process per rank, started by a launcher: '
+                             f'{command}')
         return None
     device = init_dist(args.launcher, args.dist_backend, args.device)
     args.device = str(device)
     world = get_dist_info()[1]
-    if args.dp != world:
-        raise SystemExit(f'--dp {args.dp}, but the launcher started {world} '
-                         f'processes: give --dp {world}, or start '
-                         f'{args.dp} ({command})')
-    return create_mesh(data=world, device_type=device.type)
+    if args.dp * args.tp != world:
+        raise SystemExit(
+            f'--dp {args.dp}, but the launcher started {world} processes '
+            f'(--dp x --tp = {args.dp} x {args.tp} must equal the world '
+            f'size): give --dp {world // args.tp} with --tp {args.tp}, or '
+            f'start {args.dp * args.tp} ({command})')
+    return create_mesh(data=args.dp, model=args.tp,
+                       device_type=device.type)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -134,7 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     log = print if main_rank else (lambda *a, **k: None)
     disable_tf32()
     if args.tile_batch is None:
-        args.tile_batch = max(1, args.dp)   # one tile per rank
+        args.tile_batch = max(1, args.dp)   # one tile per data rank
 
     dtype = torch.bfloat16 if args.precision == 'bf16' else torch.float32
     sr = load_inferencer(args.weight, scale_factor=args.out_scale,

@@ -16,7 +16,7 @@ import os
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -91,8 +91,9 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f'{what}: CUDA error {err}')
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """The tensor's device pointer (null for None: an optional output)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream() -> ctypes.c_void_p:

@@ -3,6 +3,9 @@
 Kernel: csrc/vq_argmin.cu (replaces femasr_tpu/ops/pallas/vq.py
 vq_argmin). `vq_argmin` launches it for CUDA tensors and runs
 `vq_argmin_plain`, the same function in plain PyTorch, for CPU tensors.
+With `with_dist=True` both also return each token's winning distance, the
+value the search compared (a codebook split over tensor-parallel ranks
+reduces the ranks' pairs: `ops/quantize.py`).
 """
 
 from __future__ import annotations
@@ -24,13 +27,17 @@ CHANNEL_CHUNK = 32
 _slots: Dict[int, int] = {}
 
 
-def vq_argmin_plain(z_flat: torch.Tensor, codebook: torch.Tensor
-                    ) -> torch.Tensor:
-    """argmin_j ||c_j||^2 - 2 z.c_j in f32, first minimum on ties."""
+def vq_argmin_plain(z_flat: torch.Tensor, codebook: torch.Tensor,
+                    with_dist: bool = False):
+    """argmin_j ||c_j||^2 - 2 z.c_j in f32, first minimum on ties; with
+    with_dist, (indices, the (N,) f32 distances at them)."""
     z = z_flat.float()
     cb = codebook.float()
     d = cb.square().sum(1)[None, :] - 2.0 * (z @ cb.t())
-    return d.argmin(dim=1).to(torch.int32)
+    idx = d.argmin(dim=1)
+    if with_dist:
+        return idx.to(torch.int32), d.gather(1, idx[:, None])[:, 0]
+    return idx.to(torch.int32)
 
 
 def choose_splits(n: int, k: int, slots: int) -> Tuple[int, int]:
@@ -56,7 +63,7 @@ def choose_splits(n: int, k: int, slots: int) -> Tuple[int, int]:
 
 def _lib():
     lib = _build.load('vq_argmin')
-    lib.femasr_vq_argmin.argtypes = [ctypes.c_void_p] * 6 + [
+    lib.femasr_vq_argmin.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.femasr_vq_argmin.restype = ctypes.c_int
     lib.femasr_vq_slots.argtypes = []
@@ -78,8 +85,10 @@ def slots(device: torch.device) -> int:
 
 
 def vq_argmin(z_flat: torch.Tensor, codebook: torch.Tensor,
-              splits: Optional[int] = None) -> torch.Tensor:
-    """(N,) int32 index of the nearest code for each of the (N, C) tokens.
+              splits: Optional[int] = None, with_dist: bool = False):
+    """(N,) int32 index of the nearest code for each of the (N, C) tokens
+    (with_dist: and the (N,) f32 distance ||c||^2 - 2 z.c the kernel
+    compared for it).
 
     Tokens and codebook are cast to float32 first, so a bfloat16 model
     searches in f32. The (N, K) distance matrix is never materialized.
@@ -88,7 +97,7 @@ def vq_argmin(z_flat: torch.Tensor, codebook: torch.Tensor,
     """
     _build.refuse_grad('vq_argmin', z_flat, codebook)
     if z_flat.device.type == 'cpu':
-        return vq_argmin_plain(z_flat, codebook)
+        return vq_argmin_plain(z_flat, codebook, with_dist)
     if z_flat.device.type != 'cuda' or codebook.device != z_flat.device:
         raise ValueError(f'vq_argmin: unsupported devices {z_flat.device}, '
                          f'{codebook.device}')
@@ -103,8 +112,10 @@ def vq_argmin(z_flat: torch.Tensor, codebook: torch.Tensor,
     n, c = z.shape
     k = cb.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=z.device)
+    dist = (torch.empty(n, dtype=torch.float32, device=z.device)
+            if with_dist else None)
     if n == 0:
-        return idx
+        return (idx, dist) if with_dist else idx
     pad = -c % CHANNEL_CHUNK
     if pad:
         # zero channels add exact zeros to every dot product and norm
@@ -121,9 +132,9 @@ def vq_argmin(z_flat: torch.Tensor, codebook: torch.Tensor,
     part_i = torch.empty(part_v.shape, dtype=torch.int32, device=z.device)
     err = _lib().femasr_vq_argmin(
         _build.ptr(z), _build.ptr(cb), _build.ptr(c2), _build.ptr(part_v),
-        _build.ptr(part_i), _build.ptr(idx), n, k, c + pad, splits, per,
-        _build.stream())
+        _build.ptr(part_i), _build.ptr(idx), _build.ptr(dist), n, k,
+        c + pad, splits, per, _build.stream())
     _build.check(err, 'vq_argmin launch')
     global launches
     launches += 1
-    return idx
+    return (idx, dist) if with_dist else idx

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import local_state
+
 # derived buffers that reference checkpoints carry beside the parameters
 _BUFFER_SUFFIXES = ('relative_position_index', 'attn_mask')
 
@@ -217,7 +219,9 @@ def merge_state_dict(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
     tensor of another shape is skipped, and a parameter that is missing or
     skipped keeps the value `init(model)` gives it. Returns the counts of
     unused, missing and skipped keys, and prints them in one line when any
-    is nonzero."""
+    is nonzero. A tensor-parallel model takes its part of each split
+    parameter (`parallel.mesh.local_state`)."""
+    state_dict = local_state(model, state_dict)
     own = model.state_dict()
     unused = [k for k in state_dict if k not in own]
     skipped = [k for k in state_dict if k in own

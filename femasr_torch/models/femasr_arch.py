@@ -21,6 +21,14 @@ activations in the backward (ops/swin.py BasicLayer).
 The int8 serving lane (int8_tail, int8_levels, int8_enc_up, int8_swin,
 int8_mlp, as in the JAX FeMaSRNet) swaps convs and linears for their w8a8
 layers with the same parameters, so one state dict serves both lanes.
+
+Tensor parallelism (`tp`, the mesh's 'model' axis): the Swin blocks'
+attention by head and MLP by hidden width (ops/swin.py), and the codebooks
+by codes (ops/quantize.py), are split over the model ranks; everything
+else is whole on every rank and computes the same values there. The
+state dict then holds the rank's parts (`parallel.mesh.split_layout`);
+`init_weights` draws every tensor at its whole shape and keeps the rank's
+part, so a split model starts from the whole model's weights.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from ..ops.layers import (CombineQuantBlock, Conv2d, Conv2dInt8, ResBlock,
                           Upsample, sequential)
 from ..ops.quantize import VectorQuantizer
 from ..ops.swin import SwinLayers
+from ..parallel.mesh import split_layout
+from ..parallel.tensor_parallel import ModelAxis, shard
 
 # resolution -> channel width (femasr_arch.py:244-252)
 CHANNEL_QUERY_DICT = {8: 256, 16: 256, 32: 256, 64: 256, 128: 128, 256: 64,
@@ -102,7 +112,8 @@ class MultiScaleEncoder(nn.Module):
                  norm_type: str = 'gn', act_type: str = 'silu',
                  lq_stage: bool = True, int8_enc_up: bool = False,
                  int8_swin: bool = False, int8_mlp: bool = False,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False,
+                 tp: Optional[ModelAxis] = None):
         super().__init__()
         ksz = 4  # k=4, pad 1: shrinks H and W by 1 (reference quirk)
         ch = CHANNEL_QUERY_DICT[input_res]
@@ -117,7 +128,7 @@ class MultiScaleEncoder(nn.Module):
         if lq_stage:
             blocks.append(SwinLayers(int8_linears=int8_swin,
                                      int8_mlp=int8_mlp,
-                                     use_checkpoint=use_checkpoint))
+                                     use_checkpoint=use_checkpoint, tp=tp))
             for _ in range(2):
                 out_ch = CHANNEL_QUERY_DICT[res * 2]
                 blocks.append(EncoderUpBlock(ch, out_ch, norm_type, act_type,
@@ -154,6 +165,10 @@ class FeMaSRNet(nn.Module):
     use_checkpoint: the LQ encoder's Swin blocks recompute their
     activations in the training backward (JAX: nn.remat); serving and
     no_grad forwards never checkpoint.
+
+    tp: a `parallel.ModelAxis` to split the Swin linears and the
+    codebooks over (see the module doc); every model rank of the axis
+    runs each forward together.
     """
 
     def __init__(self, codebook_params: Sequence[Sequence[int]],
@@ -163,8 +178,10 @@ class FeMaSRNet(nn.Module):
                  use_quantize: bool = True, use_semantic_loss: bool = False,
                  int8_tail: bool = False, int8_levels: int = 1,
                  int8_enc_up: bool = False, int8_swin: bool = False,
-                 int8_mlp: bool = False, use_checkpoint: bool = False):
+                 int8_mlp: bool = False, use_checkpoint: bool = False,
+                 tp: Optional[ModelAxis] = None):
         super().__init__()
+        self.tp = tp
         params = [[int(v) for v in p] for p in codebook_params]
         self.codebook_scale = [p[0] for p in params]
         self.codebook_params = params
@@ -180,7 +197,7 @@ class FeMaSRNet(nn.Module):
         self.multiscale_encoder = MultiScaleEncoder(
             in_channel, encode_depth, gt_resolution // self.scale_factor,
             norm_type, act_type, LQ_stage, int8_enc_up, int8_swin, int8_mlp,
-            use_checkpoint)
+            use_checkpoint, tp)
 
         # without int8_tail the last decoder level and out_conv run through
         # the conv3 kernel (gn + silu: its prologue is the GroupNorm affine
@@ -210,7 +227,7 @@ class FeMaSRNet(nn.Module):
         quantizers, before_quant, after_quant = [], [], []
         for s, (scale, n_e, e_dim) in enumerate(params):
             quantizers.append(VectorQuantizer(n_e, e_dim,
-                                              lq_stage=LQ_stage))
+                                              lq_stage=LQ_stage, tp=tp))
             scale_in_ch = CHANNEL_QUERY_DICT[scale]
             if s == 0:
                 before_in, comb_ch1, comb_ch2 = scale_in_ch, e_dim, 0
@@ -313,26 +330,42 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Conv / linear weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
     norms ones / zeros, relative-position tables N(0, 0.02) clipped at 2
-    std, codebooks U(-1/n_e, 1/n_e).
+    std, codebooks U(-1/n_e, 1/n_e). A tensor-parallel model's split
+    parameters are drawn at their whole shapes and keep the rank's part:
+    every rank and the unsplit model draw the same stream.
     """
+    layout = split_layout(model)
+    tp = getattr(model, 'tp', None)
+
+    def whole(name: str, t: torch.Tensor) -> torch.Size:
+        if name not in layout:
+            return t.shape
+        dim = layout[name][0]
+        return t.shape[:dim] + (t.shape[dim] * tp.size,) + t.shape[dim + 1:]
+
+    def draw(name: str, vals: torch.Tensor) -> torch.Tensor:
+        if name not in layout:
+            return vals
+        return shard(vals, *layout[name], tp.size, tp.rank)
+
     for name, p in model.named_parameters():
         leaf = name.rsplit('.', 1)[-1]
-        owner = model.get_submodule(name.rsplit('.', 1)[0]) if '.' in name \
-            else model
+        prefix = name.rsplit('.', 1)[0] if '.' in name else ''
+        owner = model.get_submodule(prefix) if prefix else model
+        shape = whole(name, p)
         if isinstance(owner, nn.Embedding):
-            n_e = p.shape[0]
-            vals = torch.rand(p.shape, generator=generator) * 2 - 1
-            p.copy_(vals / n_e)
+            vals = torch.rand(shape, generator=generator) * 2 - 1
+            p.copy_(draw(name, vals / shape[0]))
         elif isinstance(owner, nn.PReLU):
             p.fill_(0.25)
         elif leaf == 'relative_position_bias_table':
-            p.copy_((torch.randn(p.shape, generator=generator) * 0.02)
-                    .clamp(-0.04, 0.04))
+            p.copy_(draw(name, (torch.randn(shape, generator=generator)
+                                * 0.02).clamp(-0.04, 0.04)))
         elif isinstance(owner, (nn.Conv2d, nn.Linear)):
-            w = owner.weight
-            bound = 1.0 / math.sqrt(w[0].numel())
-            vals = torch.rand(p.shape, generator=generator) * 2 - 1
-            p.copy_(vals * bound)
+            w = whole(f'{prefix}.weight', owner.weight)
+            bound = 1.0 / math.sqrt(math.prod(w[1:]))
+            vals = torch.rand(shape, generator=generator) * 2 - 1
+            p.copy_(draw(name, vals * bound))
         elif leaf == 'weight':
             p.fill_(1.0)
         else:

@@ -5,9 +5,10 @@ Images are NCHW float tensors in [0, 1] (`run_padded`, `run_tiled`) or HWC
 numpy arrays (`__call__`, `run_bucketed`). The model runs in eval mode
 under torch.inference_mode() (a live module, `model=`: torch.no_grad()) in
 the chosen dtype (float32 or bfloat16) with float32 parameters; outputs are
-clamped to [0, 1] in float32. With a data-parallel mesh
-(`parallel.mesh.create_mesh`), every forward shards its batch over the
-ranks (counterpart of the JAX SRInferencer's mesh=).
+clamped to [0, 1] in float32. With a mesh (`parallel.mesh.create_mesh`),
+every forward shards its batch over the 'data' ranks, and a 'model' axis
+above 1 splits the model over its ranks (counterpart of the JAX
+SRInferencer's mesh= and tensor_parallel=True).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ..parallel.mesh import data_size, gather_batch, local_slice
+from ..parallel.mesh import data_size, gather_batch, local_slice, local_state
+from ..parallel.tensor_parallel import model_axis
 from .convert import load_torch_checkpoint, merge_state_dict
 from .femasr_arch import FeMaSRNet, init_weights
 
@@ -84,11 +86,14 @@ class SRInferencer:
     instead. int8_tail, int8_levels, int8_enc_up, int8_swin, int8_mlp: the
     int8 serving lane of FeMaSRNet (same state dict).
 
-    mesh: a ('data', 'model') mesh of the run's ranks (model 1): each
-    forward's batch is padded to a multiple of the data axis by repeating
-    its last item, each rank runs its contiguous block, and the outputs
-    are gathered onto every rank. max_tile_batch defaults to the data
-    axis's size (one tile per rank), else 1.
+    mesh: a ('data', 'model') mesh of the run's ranks: each forward's
+    batch is padded to a multiple of the data axis by repeating its last
+    item, each data group runs its contiguous block, and the outputs are
+    gathered onto every rank. With a model axis above 1 the model is split
+    over the model ranks of each data group, which run the same block
+    together (`FeMaSRNet(tp=...)`; state_dict stays whole: each rank takes
+    its part). max_tile_batch defaults to the data axis's size (one tile
+    per data group), else 1.
 
     model: serve this live FeMaSRNet as it stands (the JAX SRInferencer's
     model=..., init_merge=False form; validation serves the trainee this
@@ -128,11 +133,12 @@ class SRInferencer:
                           act_type=act_type,
                           int8_tail=int8_tail, int8_levels=int8_levels,
                           int8_enc_up=int8_enc_up, int8_swin=int8_swin,
-                          int8_mlp=int8_mlp)
+                          int8_mlp=int8_mlp, tp=model_axis(mesh))
         if state_dict is None:
             seeded_init(model)
         elif strict:
-            model.load_state_dict(state_dict, strict=True)
+            model.load_state_dict(local_state(model, state_dict),
+                                  strict=True)
         else:
             merge_state_dict(model, state_dict, seeded_init)
         self._set_model(model.to(self.device).eval())

@@ -27,6 +27,8 @@ from ..kernels.conv3 import conv3, conv3_plain
 from ..kernels.conv3_w8a8 import conv3_w8a8
 from ..kernels.matmul_w8a8 import matmul_w8a8
 from ..kernels.matmul_w8a8_q import matmul_w8a8_q, weight_tc
+from ..parallel.tensor_parallel import (ColumnParallelLinear, ModelAxis,
+                                        RowParallelLinear, dense)
 
 
 class Conv2d(nn.Conv2d):
@@ -48,15 +50,26 @@ class Linear(nn.Linear):
     """nn.Linear whose float32 parameters are cast to the input dtype.
 
     The bias is added after the product, in x.dtype, as flax's nn.Dense
-    adds it: outside float32 the product rounds, then the sum (one rounding
-    of the fused product + bias moves ~5% of bf16 outputs by more than an
-    ulp)."""
+    adds it (`tensor_parallel.dense`). `Linear.split` builds the layer's
+    form on a tensor-parallel axis, which keeps these rounding points."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        if self.bias is None or x.dtype == torch.float32:
-            return F.linear(x, w, self.bias)
-        return F.linear(x, w) + self.bias.to(x.dtype)
+        return dense(x, self.weight.to(x.dtype), self.bias)
+
+    @staticmethod
+    def split(in_features: int, out_features: int,
+              axis: Optional[ModelAxis], kind: str, unit: int,
+              blocks: int = 1) -> nn.Linear:
+        """The linear on a tensor-parallel axis: kind 'column' splits its
+        output features (in `blocks` blocks), 'row' its input features.
+        `unit` (heads, hidden width) is what must divide the axis; without
+        an axis, or when it does not divide, the plain Linear."""
+        if axis is None or not axis.splits(unit):
+            return Linear(in_features, out_features)
+        if kind == 'column':
+            return ColumnParallelLinear(in_features, out_features, axis,
+                                        blocks)
+        return RowParallelLinear(in_features, out_features, axis)
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

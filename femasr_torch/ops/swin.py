@@ -8,6 +8,13 @@ in the int8 serving lane LinearInt8: per-tensor w8a8 (int8_linears: qkv,
 proj and the MLP) and the per-token int8 chain for the MLP (int8_mlp,
 which wins over int8_linears for the MLP). use_checkpoint recomputes each
 block's activations in the training backward (BasicLayer).
+
+Tensor parallelism (`tp`, a `parallel.ModelAxis`): each rank holds whole
+heads of the attention (its rows of q, k and v in qkv, its columns of the
+bias table and its input columns of proj) and its part of the MLP's
+hidden width (fc1 by output, fc2 by input); the window-attention kernel
+runs on the rank's heads. The int8 layers are never split (the whole
+attention and MLP then run on every rank: `parallel/tensor_parallel.py`).
 The relative-position index and the shift mask are derived, not learned:
 they are non-persistent buffers, so the state dict holds parameters only.
 """
@@ -24,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.window_attention import (window_attention,
                                         window_attention_plain)
+from ..parallel.tensor_parallel import ModelAxis
 from .layers import Conv2d, Linear, LinearInt8, quantize_rows, silu_gelu
 
 
@@ -115,12 +123,18 @@ class Mlp(nn.Module):
     """
 
     def __init__(self, in_features: int, hidden_features: int,
-                 int8: bool = False, chain: bool = False):
+                 int8: bool = False, chain: bool = False,
+                 tp: Optional[ModelAxis] = None):
         super().__init__()
-        lin = LinearInt8 if (int8 or chain) else Linear
         self.chain = chain
-        self.fc1 = lin(in_features, hidden_features)
-        self.fc2 = lin(hidden_features, in_features)
+        if int8 or chain:
+            self.fc1 = LinearInt8(in_features, hidden_features)
+            self.fc2 = LinearInt8(hidden_features, in_features)
+            return
+        self.fc1 = Linear.split(in_features, hidden_features, tp, 'column',
+                                hidden_features)
+        self.fc2 = Linear.split(hidden_features, in_features, tp, 'row',
+                                hidden_features)
 
     def forward(self, x: torch.Tensor,
                 differentiable: bool = False) -> torch.Tensor:
@@ -136,28 +150,40 @@ class WindowAttention(nn.Module):
     """W-MSA with learned relative position bias (network_swinir.py:65-145)."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int],
-                 num_heads: int, int8_linears: bool = False):
+                 num_heads: int, int8_linears: bool = False,
+                 tp: Optional[ModelAxis] = None):
         super().__init__()
-        self.num_heads = num_heads
+        split = (not int8_linears and tp is not None
+                 and tp.splits(num_heads))
+        # the heads this rank computes
+        self.num_heads = num_heads // tp.size if split else num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(torch.zeros(
-            (2 * window_size[0] - 1) * (2 * window_size[1] - 1), num_heads))
+            (2 * window_size[0] - 1) * (2 * window_size[1] - 1),
+            self.num_heads))
+        if split:
+            self.tp_layout = {'relative_position_bias_table': (1, 1)}
         self.register_buffer(
             'relative_position_index',
             torch.from_numpy(relative_position_index(*window_size)),
             persistent=False)
-        lin = LinearInt8 if int8_linears else Linear
-        self.qkv = lin(dim, dim * 3)
-        self.proj = lin(dim, dim)
+        if int8_linears:
+            self.qkv = LinearInt8(dim, dim * 3)
+            self.proj = LinearInt8(dim, dim)
+            return
+        self.qkv = Linear.split(dim, dim * 3, tp, 'column', num_heads,
+                                blocks=3)
+        self.proj = Linear.split(dim, dim, tp, 'row', num_heads)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 differentiable: bool = False) -> torch.Tensor:
         """x: (B_, N, C) windows; mask: (nW, N, N) float32 or None.
         differentiable: the attention core takes the kernel's plain version
         (the same function, under autograd)."""
-        b_, n, c = x.shape
+        b_, n, _ = x.shape
         nh = self.num_heads
         qkv = self.qkv(x)
+        c = qkv.shape[-1] // 3      # the rank's heads' channels
         # the scale rounded to the dtype first, as JAX's weakly typed scalar
         q = qkv[..., :c] * torch.tensor(self.scale, dtype=qkv.dtype)
         k = qkv[..., c:2 * c]
@@ -178,7 +204,8 @@ class SwinTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
-                 int8_linears: bool = False, int8_mlp: bool = False):
+                 int8_linears: bool = False, int8_mlp: bool = False,
+                 tp: Optional[ModelAxis] = None):
         super().__init__()
         if min(input_resolution) <= window_size:
             shift_size = 0
@@ -187,9 +214,10 @@ class SwinTransformerBlock(nn.Module):
         self.shift_size = shift_size
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, (window_size, window_size),
-                                    num_heads, int8_linears)
+                                    num_heads, int8_linears, tp)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, 4 * dim, int8=int8_linears, chain=int8_mlp)
+        self.mlp = Mlp(dim, 4 * dim, int8=int8_linears, chain=int8_mlp,
+                       tp=tp)
 
     def forward(self, x: torch.Tensor,
                 differentiable: bool = False) -> torch.Tensor:
@@ -220,14 +248,15 @@ class BasicLayer(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
                  int8_linears: bool = False, int8_mlp: bool = False,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False,
+                 tp: Optional[ModelAxis] = None):
         super().__init__()
         self.use_checkpoint = use_checkpoint
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, input_resolution, num_heads,
                                  window_size,
                                  0 if i % 2 == 0 else window_size // 2,
-                                 int8_linears, int8_mlp)
+                                 int8_linears, int8_mlp, tp)
             for i in range(depth)])
 
     def forward(self, x: torch.Tensor,
@@ -249,12 +278,13 @@ class RSTB(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  depth: int, num_heads: int, window_size: int,
                  int8_linears: bool = False, int8_mlp: bool = False,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False,
+                 tp: Optional[ModelAxis] = None):
         super().__init__()
         self.residual_group = BasicLayer(dim, input_resolution, depth,
                                          num_heads, window_size,
                                          int8_linears, int8_mlp,
-                                         use_checkpoint)
+                                         use_checkpoint, tp)
         self.conv = Conv2d(dim, dim, 3, 1, 1)
 
     def forward(self, x: torch.Tensor,
@@ -270,11 +300,12 @@ class SwinLayers(nn.Module):
     def __init__(self, input_resolution: Tuple[int, int] = (32, 32),
                  embed_dim: int = 256, blk_depth: int = 6, num_heads: int = 8,
                  window_size: int = 8, int8_linears: bool = False,
-                 int8_mlp: bool = False, use_checkpoint: bool = False):
+                 int8_mlp: bool = False, use_checkpoint: bool = False,
+                 tp: Optional[ModelAxis] = None):
         super().__init__()
         self.swin_blks = nn.ModuleList([
             RSTB(embed_dim, input_resolution, blk_depth, num_heads,
-                 window_size, int8_linears, int8_mlp, use_checkpoint)
+                 window_size, int8_linears, int8_mlp, use_checkpoint, tp)
             for _ in range(4)])
 
     def forward(self, x: torch.Tensor,

@@ -12,7 +12,8 @@ results/<name>/. The run takes the CUDA card and stops without one;
 `device: cpu` in the options evaluates on the CPU. Under a launcher
 (`torchrun --nproc_per_node N -m femasr_torch.test_cli -opt ... --launcher
 pytorch`) the ranks share out the images and give the metrics one
-process gives.
+process gives; with `model_parallel: N` the network is split over N
+ranks of each data group, which serve their images together.
 """
 
 from __future__ import annotations

@@ -10,9 +10,13 @@ state (optimizers, step, EMA, parameters, discriminator spectral vectors,
 RNG states) goes to training_states/<iter>.state.
 
 Data parallel (`opt['dist']`): the trained networks run wrapped in
-DistributedDataParallel (`model_to_device`; the bare networks stay the
-model's own, so nothing unwraps them), the logged values are the mean
-over the ranks (`reduce_loss_dict`), and rank 0 alone writes files.
+DistributedDataParallel over the mesh's 'data' group (`model_to_device`;
+the bare networks stay the model's own, so nothing unwraps them), the
+logged values are the mean over the data ranks (`reduce_loss_dict`), and
+rank 0 alone writes files. With a 'model' axis above 1 each data rank is
+a group of model ranks that hold their parts of the split parameters;
+the tensors held whole on every model rank take model rank 0's gradients
+(`FeMaSRModel`), and DDP over the data group keeps them equal.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from ..parallel.dist_util import get_dist_info
+from ..parallel.mesh import data_rank, data_size
 from ..utils.logger import get_root_logger
 
 
@@ -41,38 +46,52 @@ class BaseModel:
         self.best_metric_results: Dict[str, Dict[str, Dict[str, Any]]] = {}
         self.dist = bool(opt.get('dist', False))
         self.rank, self.world_size = get_dist_info() if self.dist else (0, 1)
+        self.mesh = None        # the ('data', 'model') mesh of a run
+
+    @property
+    def data_group(self):
+        """The process group of this rank's data axis (None: the world)."""
+        return self.mesh.get_group('data') if self.mesh is not None else None
+
+    @property
+    def data_size(self) -> int:
+        return data_size(self.mesh) if self.dist else 1
+
+    @property
+    def data_rank(self) -> int:
+        return data_rank(self.mesh) if self.dist else 0
 
     # -- data parallel ---------------------------------------------------
 
     def model_to_device(self, net: torch.nn.Module) -> torch.nn.Module:
         """net on the model's device; in a data-parallel run wrapped in
-        DistributedDataParallel (one device per rank; the options'
-        find_unused_parameters; no buffer broadcast: the only buffers
-        that change, the discriminator's spectral vectors, are computed
-        alike on every rank from the same weights)."""
+        DistributedDataParallel over the data group (one device per rank;
+        the options' find_unused_parameters; no buffer broadcast: the only
+        buffers that change, the discriminator's spectral vectors, are
+        computed alike on every rank from the same weights)."""
         net = net.to(self.device)
         if not self.dist:
             return net
         return DistributedDataParallel(
             net, device_ids=([self.device.index] if self.device.type == 'cuda'
                              else None),
-            broadcast_buffers=False,
+            process_group=self.data_group, broadcast_buffers=False,
             find_unused_parameters=bool(self.opt.get(
                 'find_unused_parameters', False)))
 
     def reduce_loss_dict(self, loss_dict: Mapping[str, torch.Tensor]
                          ) -> Dict[str, float]:
         """The logged values as floats: in a data-parallel run each is the
-        mean over the ranks (one all-reduce), which for means over equal
-        blocks is the mean over the global batch."""
+        mean over the data ranks (one all-reduce), which for means over
+        equal blocks is the mean over the global batch."""
         if not loss_dict:
             return {}
         if not self.dist:
             return {k: float(v) for k, v in loss_dict.items()}
         vals = torch.stack([v.detach().float().reshape(())
                             for v in loss_dict.values()])
-        dist.all_reduce(vals)
-        vals = (vals / self.world_size).tolist()
+        dist.all_reduce(vals, group=self.data_group)
+        vals = (vals / self.data_size).tolist()
         return dict(zip(loss_dict, vals))
 
     # -- validation ------------------------------------------------------

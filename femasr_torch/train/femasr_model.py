@@ -60,6 +60,23 @@ against the GT as read. `dist_validation` gives rank r the images whose
 index is r modulo the world size; each rank writes its own images, the
 per-image metrics are all-reduced and averaged in image order, so the
 results equal `nondist_validation`'s; rank 0 saves the best networks.
+
+Tensor parallel (`model_parallel: N`, under a launcher): the ranks form a
+('data', 'model') mesh (rank = d * N + m). net_g and the frozen prior are
+split over the model ranks of each data group (`FeMaSRNet(tp=...)`: the
+Swin linears and the codebooks); the discriminator, VGG19 and LPIPS stay
+whole, as in the JAX trainer. Everything above that follows the data
+rank: the loader's block, the degradation's kept block, DDP and the
+logged means (over the data group), validation's images (data rank r
+takes the images r modulo the data size; model rank 0 fills the metric
+rows and writes the images). Before each update the gradients of the
+tensors held whole on every model rank (net_g's other tensors, all of
+net_d's) are broadcast from model rank 0, which keeps their copies
+bit-equal (`parallel.tensor_parallel.broadcast_grads`). Checkpoints and
+the training state are written whole (every model rank gathers net_g,
+its EMA and the optimizer moments of the split parameters before rank 0
+writes), so a .pth of a split run loads strictly into one process and
+back; a resume takes the rank's parts of the whole state.
 """
 
 from __future__ import annotations
@@ -87,8 +104,12 @@ from ..models.vgg_arch import (VGGFeatureExtractor, convert_vgg_checkpoint,
                                vgg_truncated_state)
 from ..ops.degradations import degradation_bsrgan
 from ..ops.quantize import code_counts, perplexity_of_counts
-from ..parallel.dist_util import all_gather_object
-from ..parallel.mesh import gather_batch, local_slice
+from ..parallel.dist_util import all_gather_object, is_dist
+from ..parallel.mesh import (create_mesh, gather_batch, gather_state_dict,
+                             local_slice, local_state, split_layout)
+from ..parallel.tensor_parallel import (ModelAxis, all_gather,
+                                        broadcast_grads, model_axis, shard,
+                                        unshard)
 from ..utils.img_util import imwrite, round_8bit
 from ..utils.logger import get_root_logger
 from .base_model import BaseModel
@@ -107,11 +128,12 @@ def compute_dtype(opt: Mapping) -> torch.dtype:
     return DTYPES[opt.get('dtype')]
 
 
-def build_generator(opt: Mapping) -> FeMaSRNet:
+def build_generator(opt: Mapping, tp: Optional[ModelAxis] = None
+                    ) -> FeMaSRNet:
     if opt.get('type', 'FeMaSRNet') != 'FeMaSRNet':
         raise NotImplementedError(f'network {opt["type"]!r} is not ported')
     return FeMaSRNet(**{k: v for k, v in opt.items()
-                        if k not in _TRAINER_KEYS})
+                        if k not in _TRAINER_KEYS}, tp=tp)
 
 
 def build_discriminator(opt: Mapping) -> UNetDiscriminatorSN:
@@ -169,6 +191,11 @@ class FeMaSRModel(BaseModel):
         super().__init__(opt)
         logger = get_root_logger()
         self.device = resolve_device(opt.get('device', 'cuda'))
+        if self.dist and is_dist():
+            self.mesh = create_mesh(
+                model=int(opt.get('model_parallel', 1) or 1),
+                device_type=self.device.type)
+        self.tp = model_axis(self.mesh)
         self.seed = int(opt.get('manual_seed', 0) or 0)
         nopt = opt['network_g']
         self.dtype = compute_dtype(nopt)
@@ -177,7 +204,8 @@ class FeMaSRModel(BaseModel):
                         'run in float32 (vq_index_f32: true); the JAX '
                         'trainer would search the trainee\'s tokens with '
                         'bfloat16 cross terms')
-        self.net_g = build_generator(nopt)
+        self.net_g = build_generator(nopt, self.tp)
+        self.layout_g = split_layout(self.net_g)
         init_weights(self.net_g, torch.Generator().manual_seed(self.seed))
         self.LQ_stage = self.net_g.LQ_stage
         self.scale = self.net_g.scale_factor
@@ -192,7 +220,8 @@ class FeMaSRModel(BaseModel):
                                  'stage (path.pretrain_network_hq)')
             if load_path is not None:
                 hq_sd = load_torch_checkpoint(load_path)
-                self.net_hq = build_generator(dict(nopt, LQ_stage=False))
+                self.net_hq = build_generator(dict(nopt, LQ_stage=False),
+                                              self.tp)
                 merge_state_dict(self.net_hq, hq_sd, _seed_init(self.seed))
                 self.net_hq.requires_grad_(False).eval()
                 merge_state_dict(self.net_g, hq_sd, _seed_init(self.seed))
@@ -302,6 +331,11 @@ class FeMaSRModel(BaseModel):
         self.net_g.requires_grad_(True)
         for n, p in self.net_g.named_parameters():
             p.requires_grad_(n not in frozen)
+        self.trainable_names = [n for n, _ in self.net_g.named_parameters()
+                                if n not in frozen]
+        # trainable tensors held whole on every model rank
+        self.whole_g = [p for n, p in self.net_g.named_parameters()
+                        if n not in frozen and n not in self.layout_g]
         self.trainable_g = [p for n, p in self.net_g.named_parameters()
                             if n not in frozen]
         self.opt_g = optimizer_from_opt(train_opt['optim_g'],
@@ -458,13 +492,14 @@ class FeMaSRModel(BaseModel):
 
     def degrade(self, gt: torch.Tensor) -> torch.Tensor:
         """This step's on-device LQ of the GT batch; in a data-parallel run
-        of the rank's block, degraded as part of the whole global batch."""
+        of the data rank's block, degraded as part of the whole global
+        batch."""
         if not self.dist:
             return degradation_bsrgan(gt, self.degradation_generator(),
                                       sf=self.scale)
-        lq = degradation_bsrgan(gather_batch(gt),
+        lq = degradation_bsrgan(gather_batch(gt, self.mesh),
                                 self.degradation_generator(), sf=self.scale)
-        return local_slice(lq)
+        return local_slice(lq, self.mesh)
 
     def optimize_parameters(self, current_iter: Optional[int] = None) -> None:
         if self.degrade_on_device:
@@ -472,6 +507,8 @@ class FeMaSRModel(BaseModel):
         gate = self.gan_gate()
         self.opt_g.zero_grad(set_to_none=True)
         total, loss_dict, output, idx, _ = self.g_backward(self.lq, self.gt)
+        if self.tp is not None:
+            broadcast_grads(self.whole_g, self.tp)
         # filled at log time from the code counts of the global batch
         loss_dict['codebook_perplexity'] = None
         self._code_counts = code_counts(idx, self.n_e)
@@ -488,6 +525,8 @@ class FeMaSRModel(BaseModel):
             l_real, p_real = self._d_phase(self.gt, True, n, sync=False)
             l_fake, p_fake = self._d_phase(output, False, n)
             if gate:
+                if self.tp is not None:
+                    broadcast_grads(list(self.net_d.parameters()), self.tp)
                 self._set_lr(self.opt_d, self.sched_d)
                 self.opt_d.step()
             else:       # the spectral vectors stay as they were
@@ -510,7 +549,7 @@ class FeMaSRModel(BaseModel):
             counts = self._code_counts
             if self.dist:
                 counts = counts.clone()
-                dist.all_reduce(counts)
+                dist.all_reduce(counts, group=self.data_group)
             vals = self.reduce_loss_dict({k: v for k, v in log.items()
                                           if k != 'codebook_perplexity'})
             vals['codebook_perplexity'] = float(perplexity_of_counts(counts))
@@ -531,7 +570,7 @@ class FeMaSRModel(BaseModel):
             return self.net_g
         if self.net_g_ema is None:
             with torch.random.fork_rng(devices=[]):
-                net = build_generator(self.opt['network_g'])
+                net = build_generator(self.opt['network_g'], self.tp)
             self.net_g_ema = net.requires_grad_(False).eval().to(self.device)
         with torch.no_grad():
             for n, p in self.net_g_ema.named_parameters():
@@ -591,8 +630,10 @@ class FeMaSRModel(BaseModel):
         metric over the images that have a GT, keep the best records (by
         `val.key_metric`, or per metric when it is absent or skipped) and
         save net_g_best / net_d_best when they improve. With shard, this
-        rank takes the images whose index is its rank modulo the world
-        size, and a table of every image's metrics is all-reduced."""
+        rank takes the images whose index is its data rank modulo the
+        data size (the model ranks of a data group serve them together),
+        and a table of every image's metrics, filled by model rank 0 of
+        each data group, is all-reduced."""
         dataset_name = dataloader.dataset.opt['name']
         metric_funcs = (self._metric_funcs()
                         if self.opt['val'].get('metrics') else {})
@@ -606,14 +647,16 @@ class FeMaSRModel(BaseModel):
             table = torch.zeros(len(data), len(metric_funcs) + 1,
                                 dtype=torch.float64)
             items = ((i, default_collate([data[i]])) for i in
-                     range(self.rank, len(data), self.world_size))
+                     range(self.data_rank, len(data), self.data_size))
         else:
             items = enumerate(dataloader)
+        # one rank of each data group writes its images and metric rows
+        writes = self.tp is None or self.tp.rank == 0
         for i, val_data in items:
             img_name = osp.splitext(osp.basename(val_data['lq_path'][0]))[0]
             # HWC RGB 8-bit levels, on the device
             levels = round_8bit(self.test(val_data['lq']))[0].permute(1, 2, 0)
-            if save_img:
+            if save_img and writes:
                 imwrite(levels.flip(-1).to(torch.uint8).cpu().numpy(),
                         self._save_path(img_name, current_iter,
                                         dataset_name))
@@ -621,9 +664,10 @@ class FeMaSRModel(BaseModel):
                 sr01 = levels / 255.0
                 gt = val_data['gt'][0].permute(1, 2, 0).to(self.device)
                 if shard:
-                    table[i] = torch.tensor(
-                        [fn(sr01, gt) for fn in metric_funcs.values()]
-                        + [1.0], dtype=torch.float64)
+                    if writes:
+                        table[i] = torch.tensor(
+                            [fn(sr01, gt) for fn in metric_funcs.values()]
+                            + [1.0], dtype=torch.float64)
                     continue
                 n_gt += 1
                 for name, fn in metric_funcs.items():
@@ -664,7 +708,8 @@ class FeMaSRModel(BaseModel):
         evaluation has no models folder and saves nothing."""
         if not self.is_train:
             return
-        self.save_network(self.eval_net().state_dict(), 'net_g_best', '')
+        self.save_network(self.whole_state(self.eval_net().state_dict()),
+                          'net_g_best', '')
         self.save_network(self.net_d.state_dict(), 'net_d_best', '')
 
     def _log_validation_metric_values(self, current_iter, dataset_name: str,
@@ -714,28 +759,59 @@ class FeMaSRModel(BaseModel):
 
     # -- checkpoints -------------------------------------------------------
 
+    def whole_state(self, state: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """A state of net_g's keys (its parameters, the EMA) whole: the
+        split tensors gathered over the model ranks (every model rank
+        calls this)."""
+        return gather_state_dict(state, self.layout_g, self.tp)
+
+    def _opt_g_state(self, state: Mapping, part: bool) -> Mapping:
+        """opt_g's state dict with each moment of a split parameter made
+        whole (part False: gathered over the model ranks, every one
+        calling) or cut to the rank's part (part True)."""
+        if self.tp is None:
+            return state
+        out = dict(state, state={})
+        for i in sorted(state['state']):
+            spec = self.layout_g.get(self.trainable_names[i])
+            entry = {}
+            for k in sorted(state['state'][i]):
+                v = state['state'][i][k]
+                if spec is not None and torch.is_tensor(v) and v.dim():
+                    v = (shard(v, *spec, self.tp.size, self.tp.rank) if part
+                         else unshard(all_gather(v, self.tp.group,
+                                                 self.tp.size), *spec))
+                entry[k] = v
+            out['state'][i] = entry
+        return out
+
     def save(self, epoch: int, current_iter: int) -> None:
-        """The networks and the training state; in a data-parallel run
-        every rank calls this (the ranks' RNG states are gathered) and
+        """The networks and the training state, written whole; in a
+        data-parallel run every rank calls this (the ranks' RNG states
+        are gathered, and the split tensors over the model ranks) and
         rank 0 writes."""
         rng = {'cpu': torch.get_rng_state()}
         if self.device.type == 'cuda':
             rng['cuda'] = torch.cuda.get_rng_state(self.device)
         rngs = all_gather_object(rng) if self.dist else [rng]
+        params_g = self.whole_state(self.net_g.state_dict())
+        ema = self.whole_state(self.ema) if self.ema is not None else None
+        opt_g = self._opt_g_state(self.opt_g.state_dict(), part=False)
         if self.rank != 0:
             return
-        self.save_network(self.net_g.state_dict(), 'net_g', current_iter,
-                          extra_keys=({'params_ema': self.ema}
-                                      if self.ema is not None else None))
+        self.save_network(params_g, 'net_g', current_iter,
+                          extra_keys=({'params_ema': ema}
+                                      if ema is not None else None))
         self.save_network(self.net_d.state_dict(), 'net_d', current_iter)
         state = {'step': self.step,
-                 'params_g': self.net_g.state_dict(),
+                 'params_g': params_g,
                  'params_d': self.net_d.state_dict(),
-                 'opt_g': self.opt_g.state_dict(),
+                 'opt_g': opt_g,
                  'opt_d': self.opt_d.state_dict(),
                  'rng_cpu': rng['cpu']}
-        if self.ema is not None:
-            state['params_g_ema'] = self.ema
+        if ema is not None:
+            state['params_g_ema'] = ema
         if 'cuda' in rng:
             state['rng_cuda'] = rng['cuda']
         if len(rngs) > 1:
@@ -743,18 +819,22 @@ class FeMaSRModel(BaseModel):
         self.save_training_state(state, epoch, current_iter)
 
     def resume_training(self, state_path: str) -> Dict[str, int]:
-        """Every rank loads the state onto its device and restores its own
-        RNG state (a state saved at another world size gives the ranks it
-        has no state of their seeded streams)."""
+        """Every rank loads the state onto its device (the rank's parts of
+        the split tensors: the state is whole) and restores its own RNG
+        state (a state saved at another world size gives the ranks it has
+        no state of their seeded streams)."""
         tree = self.resume_training_state(state_path)
         state = tree['state']
-        self.net_g.load_state_dict(state['params_g'])
+        self.net_g.load_state_dict(local_state(self.net_g,
+                                               state['params_g']))
         self.net_d.load_state_dict(state['params_d'])
-        self.opt_g.load_state_dict(state['opt_g'])
+        self.opt_g.load_state_dict(self._opt_g_state(state['opt_g'],
+                                                     part=True))
         self.opt_d.load_state_dict(state['opt_d'])
         self.step = int(state['step'])
         if self.ema is not None and 'params_g_ema' in state:
-            for k, v in state['params_g_ema'].items():
+            for k, v in local_state(self.net_g,
+                                    state['params_g_ema']).items():
                 self.ema[k].copy_(v)
         rngs = state.get('rng_by_rank') or [
             {'cpu': state['rng_cpu'], **({'cuda': state['rng_cuda']}

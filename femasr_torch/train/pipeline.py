@@ -21,6 +21,11 @@ counts global positions; rank 0 alone makes the experiment directory,
 writes checkpoints, the log and TensorBoard (the others wait for it where
 they read what it wrote), and validation and evaluation share the images
 out among the ranks (`FeMaSRModel.dist_validation`).
+
+Tensor parallel (`model_parallel: N` under a launcher): the N model ranks
+of each data group split the networks and take the same block of each
+global batch, so the loop runs on the data axis: batch_size_per_gpu x
+(world size / N) a global batch.
 """
 
 from __future__ import annotations
@@ -56,9 +61,13 @@ def load_resume_state(opt: dict) -> Optional[str]:
     return opt['path'].get('resume_state')
 
 
+def tb_wanted(opt: dict) -> bool:
+    return bool(opt['logger'].get('use_tb_logger')
+                and 'debug' not in opt['name'])
+
+
 def init_tb(opt: dict, logger):
-    if (not opt['logger'].get('use_tb_logger') or 'debug' in opt['name']
-            or opt['rank'] != 0):
+    if not tb_wanted(opt) or opt['rank'] != 0:
         return None
     try:
         return init_tb_logger(osp.join(opt['root_path'], 'tb_logger',
@@ -102,10 +111,10 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
         elif phase != 'train':
             raise ValueError(f'Dataset phase {phase} is not recognized.')
     val_opt = opt.get('val') if val_loader is not None else None
-    world = opt['world_size']
+    world = opt['data_parallel']
     loader, sampler = build_train_loader(
         train_set, dataset_opt, opt['manual_seed'],
-        pin_memory=model.device.type == 'cuda', rank=opt['rank'],
+        pin_memory=model.device.type == 'cuda', rank=opt['data_rank'],
         world_size=world)
     total_iters = int(float(opt['train']['total_iter']))
     global_batch = dataset_opt['batch_size_per_gpu'] * world
@@ -115,8 +124,8 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
         raise ValueError('the train set holds fewer images than one batch')
     logger.info(f'Training statistics:\n\tNumber of train images: '
                 f'{len(train_set)}\n\tBatch size per device: '
-                f"{dataset_opt['batch_size_per_gpu']}\n\tWorld size: "
-                f'{world}\n\tIters per epoch: '
+                f"{dataset_opt['batch_size_per_gpu']}\n\tData-parallel "
+                f'size: {world}\n\tIters per epoch: '
                 f'{per_epoch}\n\tTotal epochs: '
                 f'{math.ceil(total_iters / per_epoch)}; iters: {total_iters}.')
 
@@ -129,6 +138,10 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
     data_timer, iter_timer = AvgTimer(), AvgTimer()
     start_time = time.time()
     lg = opt['logger']
+    # a split net_g decodes the codebook visuals on every model rank
+    # together; rank 0 shows them
+    visuals = tb_logger is not None or (model.tp is not None
+                                        and tb_wanted(opt))
     while current_iter < total_iters:
         sampler.start(epoch, skip * global_batch)
         skip = 0
@@ -147,9 +160,10 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
                             'data_time': data_timer.get_avg_time()}
                 log_vars.update(model.get_current_log())
                 msg_logger(log_vars)
-            if tb_logger is not None and crossed(
-                    lg.get('show_tf_imgs_freq', 0), prev_iter, current_iter):
-                for k, v in model.get_current_visuals().items():
+            if visuals and crossed(lg.get('show_tf_imgs_freq', 0),
+                                   prev_iter, current_iter):
+                shown = model.get_current_visuals()
+                for k, v in shown.items() if tb_logger is not None else ():
                     tb_logger.add_images(f'samples/{k}', v.clamp(0, 1).cpu(),
                                          current_iter, dataformats='NCHW')
             if crossed(lg.get('save_checkpoint_freq', 0), prev_iter,
@@ -188,7 +202,9 @@ def log_world(opt: dict, logger) -> None:
     how to train on all of them."""
     if opt['dist']:
         logger.info(f"Data parallel: rank {opt['rank']} of "
-                    f"{opt['world_size']} on {opt['device']}")
+                    f"{opt['world_size']} on {opt['device']}; data rank "
+                    f"{opt['data_rank']} of {opt['data_parallel']}, "
+                    f"model_parallel {opt['model_parallel']}")
         return
     import torch
     n = torch.cuda.device_count() if opt['device'].startswith('cuda') else 0

@@ -15,7 +15,10 @@ takes batch_size_per_gpu of every global batch):
         -opt options/train_FeMaSR_LQ_stage.yml --launcher pytorch
 
 or under Slurm, `srun ... python -m femasr_torch.train_cli -opt ...
---launcher slurm`. `--dist_backend gloo` picks gloo over NCCL.
+--launcher slurm`. `--dist_backend gloo` picks gloo over NCCL. With
+`model_parallel: N` in the options (`--force_yml model_parallel=N`), the
+generator is split over N ranks of each data group (tensor parallelism;
+the world size is data x N and each data group takes batch_size_per_gpu).
 """
 
 from __future__ import annotations

@@ -5,8 +5,10 @@ package (counterpart of femasr_tpu/utils/options.py).
 them; a `.json` file needs no PyYAML) or takes a ready dict, applies
 `--force_yml` overrides, refuses what the port does not carry (see
 `check_port_options`), joins the run's process group under a launcher
-(`--launcher pytorch|slurm`: one process per device, data parallel),
-seeds the global random streams with manual_seed + rank, and fills in the
+(`--launcher pytorch|slurm`: one process per device; data parallel, and
+with `model_parallel: N` the model split over N ranks of each data
+group), seeds the global random streams with manual_seed + data rank (the
+model ranks of a data group draw alike), and fills in the
 paths: experiments/<name>/ for training, results/<name>/ for evaluation
 (is_train=False). The device is `device` in the options: CUDA by default
 (under a launcher cuda:LOCAL_RANK; `cuda:i` puts every rank on card i),
@@ -26,7 +28,6 @@ from typing import Any, Optional
 
 from ..parallel.dist_util import (LAUNCHERS, broadcast_object, get_dist_info,
                                   init_dist, master_only)
-from ..parallel.mesh import TP_LATER
 
 # network_g keys of the JAX FeMaSRNet that the port builds; vq_backend and
 # vq_index_f32 are accepted because the port's search is always the f32
@@ -117,8 +118,6 @@ def check_port_options(opt: dict) -> None:
             refuse(f'{section}.{key} is a TPU program knob of the JAX '
                    f'package ({what}); the port does not carry it: remove '
                    'the key')
-    if int(opt.get('model_parallel', 1) or 1) > 1:
-        refuse(f'model_parallel > 1: {TP_LATER}')
     for net, keys in (('network_g', NETWORK_G_KEYS),
                       ('network_d', NETWORK_D_KEYS)):
         nopt = opt.get(net) or {}
@@ -143,13 +142,19 @@ def torchrun_command(n, is_train: bool) -> str:
 
 
 def resolve_world(opt: dict, launcher: str, is_train: bool) -> None:
-    """opt['dist'], opt['rank'], opt['world_size'] and num_gpu from the
-    launcher: under one, `num_gpu: auto` is the world size and an explicit
-    value must equal it; without one, auto is 1 and num_gpu > 1 or
-    `dist: true` is refused with the command that starts the ranks."""
+    """opt['dist'], opt['rank'], opt['world_size'], num_gpu and the mesh's
+    axes (model_parallel, data_parallel = world / model_parallel,
+    data_rank = rank // model_parallel) from the launcher: under one,
+    `num_gpu: auto` is the world size and an explicit value must equal
+    it, and model_parallel must divide the world; without one, auto is 1
+    and num_gpu > 1, model_parallel > 1 or `dist: true` is refused with
+    the command that starts the ranks."""
     rank, world = get_dist_info()
     num_gpu = opt.get('num_gpu', 'auto')
     num_gpu = 'auto' if num_gpu is None else num_gpu
+    mp = int(opt.get('model_parallel', 1) or 1)
+    if mp < 1:
+        raise OptionError(f'model_parallel: {mp}: give 1 or more')
     if launcher == 'none':
         if opt.get('dist'):
             raise OptionError('dist: true needs one process per device, '
@@ -160,14 +165,29 @@ def resolve_world(opt: dict, launcher: str, is_train: bool) -> None:
                 f'num_gpu: {num_gpu} needs one process per device, started '
                 f'by a launcher: {torchrun_command(num_gpu, is_train)} '
                 '(or Slurm with --launcher slurm)')
+        if mp > 1:
+            raise OptionError(
+                f'model_parallel: {mp} splits the model over {mp} processes, '
+                f'one per device, started by a launcher: '
+                f'{torchrun_command(mp, is_train)} (or Slurm with '
+                '--launcher slurm)')
         opt.update(dist=False, rank=0, world_size=1,
-                   num_gpu=1 if num_gpu == 'auto' else int(num_gpu))
+                   num_gpu=1 if num_gpu == 'auto' else int(num_gpu),
+                   model_parallel=1, data_parallel=1, data_rank=0)
         return
     if num_gpu != 'auto' and int(num_gpu) != world:
         raise OptionError(f'num_gpu: {num_gpu}, but the launcher started '
                           f'{world} processes: set num_gpu: auto or start '
                           f'{num_gpu} ({torchrun_command(num_gpu, is_train)})')
-    opt.update(dist=True, rank=rank, world_size=world, num_gpu=world)
+    if world % mp:
+        raise OptionError(
+            f'model_parallel: {mp} does not divide the {world} processes '
+            'the launcher started (the data-parallel size is the world '
+            'size / model_parallel): start a multiple of '
+            f'{mp} ({torchrun_command(mp, is_train)})')
+    opt.update(dist=True, rank=rank, world_size=world, num_gpu=world,
+               model_parallel=mp, data_parallel=world // mp,
+               data_rank=rank // mp)
 
 
 def set_random_seed(seed: int) -> None:
@@ -218,7 +238,7 @@ def parse_options(root_path: str, is_train: bool = True,
     # one seed for every rank, drawn on rank 0 when the file has none
     if opt.get('manual_seed') is None:
         opt['manual_seed'] = broadcast_object(random.randint(1, 10000))
-    set_random_seed(int(opt['manual_seed']) + opt['rank'])
+    set_random_seed(int(opt['manual_seed']) + opt['data_rank'])
     opt.update(auto_resume=args.auto_resume, is_train=is_train,
                root_path=root_path)
     if args.debug and not opt['name'].startswith('debug'):

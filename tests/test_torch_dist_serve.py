@@ -10,8 +10,8 @@ run_bucketed equal world 1 within 2e-5 (the bound of the JAX package's
 dp serving check, __graft_entry__.py:194) on both ranks, and the JAX mesh
 within 2e-3 of the largest value (the whole-model bound, PARITY.md §A);
 `inference_cli --dp 2 --launcher pytorch` writes world 1's images (rank 0
-writes them); --dp other than the world size, --dp > 1 without a
-launcher and --tp > 1 are refused with their reasons. Each rank runs in a
+writes them); --dp other than the world size, and --dp > 1 or --tp > 1
+without a launcher, are refused with their reasons. Each rank runs in a
 subprocess on one thread (tests/torch_dist_worker.py).
 """
 
@@ -132,5 +132,6 @@ def test_cli_refuses_what_data_parallel_serving_does_not_do(served):
     args = ['-i', 'x', '-w', 'x.pth', '--device', 'cpu']
     with pytest.raises(SystemExit, match='torchrun --nproc_per_node 2'):
         inference_cli.main(args + ['--dp', '2'])
-    with pytest.raises(SystemExit, match='A11b'):
+    with pytest.raises(SystemExit, match='torchrun --nproc_per_node 2 .* '
+                       '--dp 1 --tp 2'):
         inference_cli.main(args + ['--tp', '2'])

@@ -87,7 +87,7 @@ def test_slurm_environment_maps_to_torch_distributed():
                           'femasr_torch.train_cli'),
     (_opt(dist=True), [], 'launcher'),
     (_opt(), ['--dist_backend', 'gloo'], 'needs a launcher'),
-    (_opt(model_parallel=2), [], 'A11b'),
+    (_opt(model_parallel=2), [], 'launcher: torchrun --nproc_per_node 2'),
 ], ids=['num_gpu', 'dist', 'backend', 'model_parallel'])
 def test_options_without_a_launcher_refuse(opt, argv, match):
     with pytest.raises(OptionError, match=match):
@@ -117,7 +117,7 @@ def test_one_process_defaults():
 
 
 def test_no_fallback(monkeypatch):
-    with pytest.raises(NotImplementedError, match='A11b'):
+    with pytest.raises(RuntimeError, match='process group'):
         create_mesh(data=1, model=2)
     with pytest.raises(RuntimeError, match='process group'):
         create_mesh()

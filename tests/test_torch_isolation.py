@@ -46,6 +46,7 @@ for name in ('jax', 'flax', 'femasr_tpu'):
 import torch
 import femasr_torch, femasr_torch.kernels, femasr_torch.inference_cli
 import femasr_torch.train_cli, femasr_torch.test_cli, femasr_torch.parallel
+import femasr_torch.parallel.tensor_parallel
 from femasr_torch.models import SRInferencer
 from femasr_torch.models.inference import load_inferencer
 OPT = {'name': 'probe', 'model_type': 'FeMaSRModel', 'manual_seed': 0,

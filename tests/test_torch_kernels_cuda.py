@@ -123,6 +123,44 @@ def test_vq_argmin_kernel_first_index_wins_exact_ties(gen, k):
         assert torch.equal(vq_argmin.vq_argmin(z, cb, splits=splits), want)
 
 
+@pytest.mark.parametrize('splits', [1, 3])
+def test_vq_argmin_kernel_distance_is_the_compared_one(gen, splits):
+    # with its distance: the same indices, and the distance within f32
+    # rounding of the plain version's (one code range and three: the
+    # merge writes it)
+    z = torch.randn(2000, 512, generator=gen).cuda()
+    cb = torch.randn(1000, 512, generator=gen).cuda()
+    idx = vq_argmin.vq_argmin(z, cb, splits=splits)
+    idx_d, dist = vq_argmin.vq_argmin(z, cb, splits=splits, with_dist=True)
+    assert torch.equal(idx_d, idx) and dist.dtype == torch.float32
+    ref_idx, ref = vq_argmin.vq_argmin_plain(z, cb, with_dist=True)
+    assert (idx == ref_idx).float().mean().item() >= 0.999
+    assert (dist - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_vq_argmin_split_search_equals_the_whole_search(gen):
+    # the codebook in two and four shards, as tensor-parallel ranks hold
+    # it: each shard's (distance, index) pairs reduced by the kernel's
+    # rule give the whole search's indices bit for bit, exact ties across
+    # the shards included (code j + 512 repeats code j)
+    from femasr_torch.parallel.tensor_parallel import first_minimum
+    cb = torch.randn(1024, 512, generator=gen)
+    cb[512:520] = cb[:8]
+    z = torch.cat([cb[:8].repeat_interleave(4, 0),
+                   torch.randn(5000, 512, generator=gen)]).cuda()
+    cb = cb.cuda()
+    whole = vq_argmin.vq_argmin(z, cb)
+    assert (whole[:32] < 8).all()
+    for shards in (2, 4):
+        n = 1024 // shards
+        parts = [vq_argmin.vq_argmin(z, cb[s * n:(s + 1) * n],
+                                     with_dist=True) for s in range(shards)]
+        got = first_minimum([d for _, d in parts],
+                            [i.long() + s * n for s, (i, _) in
+                             enumerate(parts)])
+        assert torch.equal(got.int(), whole), shards
+
+
 def test_wrappers_count_launches(gen):
     before = conv3.launches, window_attention.launches
     x = torch.randn(1, 64, 8, 8, generator=gen).cuda().contiguous(

@@ -167,7 +167,7 @@ def test_generator_ema_tracks_the_weights(folder):
     (lambda o: o['train'].update(chain_steps=8), 'chain_steps'),
     (lambda o: o['train'].update(flat_optimizer=True), 'flat_optimizer'),
     (lambda o: o['network_g'].update(attn_pack=2), 'attn_pack'),
-    (lambda o: o.update(model_parallel=2), 'A11'),
+    (lambda o: o.update(model_parallel=2), 'torchrun --nproc_per_node 2'),
     (lambda o: o['network_g'].update(dtype='bfloat16', vq_index_f32=False),
      'vq_index_f32'),
     (lambda o: o['network_d'].update(dtype='float16'), 'not ported'),

@@ -9,15 +9,18 @@ process. It imports torch and the port only, never jax, and computes on
 one thread. Each job writes <out>/<name>.rank<r>.pt:
 
 - train / test: train_cli / test_cli on `opt` with `argv`; fingerprints of
-  the networks (train) or the metric results (test);
+  the networks (train: with tensor parallelism the rank's parts, and the
+  bytes of every whole-on-every-rank tensor) or the metric results (test);
 - serve: SRInferencer of a seeded state dict over `images` through
-  run_padded, run_tiled and run_bucketed, on a mesh under a launcher;
+  run_padded, run_tiled and run_bucketed, on a mesh under a launcher
+  (`tp`: the size of its model axis; `strict`: a strict load);
 - cli: inference_cli with `argv`;
 - util: the dist_util and mesh surface (ranks, master_only, barrier,
   broadcast, local_slice, gather_batch, the mesh's axes);
 - options: parse_options on `opt` and `argv`: the options or the error.
 """
 
+import hashlib
 import json
 import os
 import sys
@@ -32,7 +35,10 @@ torch.set_num_threads(1)
 
 def _run_cli(module, job):
     os.makedirs(job['cwd'], exist_ok=True)
-    opt_path = os.path.join(job['cwd'], f"{job['name']}.json")
+    # one file per rank: ranks that share a directory would otherwise
+    # read each other's half-written file
+    opt_path = os.path.join(job['cwd'], f"{job['name']}.rank"
+                            f"{os.environ.get('RANK', 0)}.json")
     with open(opt_path, 'w') as f:
         json.dump(job['opt'], f)
     cwd = os.getcwd()
@@ -51,12 +57,21 @@ def fingerprint(module):
             for k, v in module.state_dict().items()}
 
 
+def digests(module, skip=()):
+    """Per tensor of the state dict not in `skip`: a hash of its bytes."""
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().numpy()
+                            .tobytes()).hexdigest()
+            for k, v in module.state_dict().items() if k not in skip}
+
+
 def train(job):
     from femasr_torch import train_cli
     model = _run_cli(train_cli, job)
     return {'net_g': fingerprint(model.net_g),
             'net_d': fingerprint(model.net_d),
             'ddp': type(model.net_g_train).__name__,
+            'split': sorted(model.layout_g),
+            'whole_g': digests(model.net_g, model.layout_g),
             'no_grad': sorted(n for n, p in model.net_g.named_parameters()
                               if p.requires_grad and p.grad is None)}
 
@@ -73,9 +88,10 @@ def serve(job):
     from femasr_torch.models import SRInferencer
     from femasr_torch.parallel import create_mesh, is_dist
     sd = torch.load(job['weights'])['params']
-    mesh = create_mesh(device_type='cpu') if is_dist() else None
+    mesh = (create_mesh(model=job.get('tp', 1), device_type='cpu')
+            if is_dist() else None)
     kw = dict(codebook_params=job['codebook'], scale_factor=4,
-              device='cpu', mesh=mesh)
+              device='cpu', mesh=mesh, strict=job.get('strict', False))
     sr = SRInferencer(sd, **kw)
     imgs = [np.asarray(i, np.float32) for i in np.load(job['images'])]
     x = torch.from_numpy(np.stack(imgs)).permute(0, 3, 1, 2)
