@@ -125,9 +125,25 @@ Phases:
      and the tp=2 net_g .pth served strictly at tp=1 as at tp=2; (e)
      launches per rank on every path (each rank launches what one process
      does);
- 10. print a JSON line of per-kernel numbers (and the training numbers),
-     the card's name and power limit, and last `{"ok": true, "device":
-     {...}}`.
+ 10. SwinIR (A12a), run after phase 4 (`swinir_phase`): the four
+     published configurations (define_model of the SwinIR repository:
+     SwinIR-M classical x4 and real-world x4, SwinIR-S lightweight x4,
+     SwinIR-M JPEG CAR) at full width and depth with seeded weights,
+     through build_network, on a smooth 256^2 RGB image (x4) and a 504^2
+     grayscale one (CAR), once in f32 and once in bf16: launches of one
+     forward (B2 36 / 36 / 24 / 36 and no other kernel; in bf16 also
+     act_bf16 once a block), ms per forward, peak memory, the whole model
+     through the kernels against the plain versions (f32 max abs 1e-4;
+     bf16 PSNR vs the f32 plain output within 0.5 dB of the plain bf16
+     run's); in phase 2, B2 at SwinIR's shapes ((1024,64,180), (1024,64,60),
+     (5184,49,180), 6 heads; packed qkv slices) with and without the mask
+     in f32 and bf16 against its plain version, timed beside its bound,
+     its plain version and SDPA, and FeMaSR's shape on its own route;
+     in phases 3-9 (serving lanes, profiles, training, validation, every
+     dp and tp rank) no FeMaSR B2 launch takes the padded route;
+ 11. print a JSON line of per-kernel numbers (and the training and SwinIR
+     numbers), the card's name and power limit, and last `{"ok": true,
+     "device": {...}}`.
 
 Any failed phase exits non-zero before the last line is printed.
 """
@@ -205,6 +221,8 @@ MM_QKV_MAX_MS = 0.2
 # B3's distance output against the plain version's, of the largest
 # distance (both f32, summed in other orders)
 VQ_DIST_RTOL = 1e-5
+# FeMaSR's B2 time on this card before B2 took SwinIR's shapes (PERF.md)
+FEMASR_B2_EARLIER_MS = (0.102, 0.105)
 
 
 class PhaseError(RuntimeError):
@@ -250,6 +268,22 @@ def counting_off(*mods):
     finally:
         for m, s in zip(mods, saved):
             m.launches = s
+
+
+@contextlib.contextmanager
+def femasr_b2_routes(where: str):
+    """FeMaSR's window attention within the block never takes B2's padded
+    route (TC, SwinIR's): in bf16 it stays on the N = 64, head_dim 32
+    kernel (TC64). Counted from the wrapper's launches by route, comparison
+    launches included (they are at FeMaSR's shapes too)."""
+    from femasr_torch.kernels import window_attention as mod
+    before = list(mod.route_launches)
+    yield
+    n = [a - b for a, b in zip(mod.route_launches, before)]
+    print(f'[window_attention] {where}: B2 launches by route (f32, N = 64 '
+          f'tensor cores, padded) {n}', flush=True)
+    require(n[mod.TC] == 0, f'window_attention: {where}: FeMaSR took the '
+                            f'padded route {n[mod.TC]} times')
 
 
 @contextlib.contextmanager
@@ -404,9 +438,18 @@ def check_window_attention(dev, results):
             require(ok, f'window_attention mask={with_mask} {dtype}: kernel '
                         f'disagrees with plain (max abs err {err})')
             if with_mask and dtype == torch.bfloat16:
+                # FeMaSR's shape keeps its N = 64, head_dim 32 kernel
+                route = mod.route_of(q, k, v, nh)
+                print(f'[window_attention] FeMaSR bf16 with the mask: route '
+                      f'{route} (TC64 = {mod.TC64}), {ms:.4f} ms beside the '
+                      f'earlier {FEMASR_B2_EARLIER_MS[0]}-'
+                      f'{FEMASR_B2_EARLIER_MS[1]} ms', flush=True)
+                require(route == mod.TC64, f'window_attention: FeMaSR\'s '
+                                           f'shape takes route {route}')
                 entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bms, bound_by=by,
                              dtype='bfloat16', share_beyond_one_ulp=beyond,
+                             b2_route=route,
                              shape='q,k,v (1089,64,256), 8 heads, mask '
                                    '(1089,64,64)')
     results['window_attention'] = entry
@@ -1148,6 +1191,28 @@ def conv3_w8a8_by_shape(calls: list, events: list) -> list:
     return rows
 
 
+def group_kernels(prof) -> tuple:
+    """The profile's kernels in start order, their device time (us) by
+    KERNEL_GROUPS group and by name, and their launches by name."""
+    kern = device_kernels(prof)
+    kern.sort(key=lambda e: e.time_range.start)
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups['other'] = 0.0
+    by_name, n_by_name = {}, {}
+    for e in kern:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
+        low = e.name.lower()
+        for gname, keys in KERNEL_GROUPS:
+            if any(k in low for k in keys):
+                groups[gname] += us
+                break
+        else:
+            groups['other'] += us
+    return kern, groups, by_name, n_by_name
+
+
 def profile_forward(dev, lane: str, reps: int = 3) -> dict:
     """Device-time breakdown of one warm 512px bf16 whole-image forward;
     in the int8 lane also B6's launches and time per shape."""
@@ -1172,22 +1237,7 @@ def profile_forward(dev, lane: str, reps: int = 3) -> dict:
             recording_conv3_w8a8(calls):
         sr.run_padded(x)
         sync(dev)
-    kern = device_kernels(prof)
-    kern.sort(key=lambda e: e.time_range.start)
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    groups['other'] = 0.0
-    by_name, n_by_name = {}, {}
-    for e in kern:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-        n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
-        low = e.name.lower()
-        for gname, keys in KERNEL_GROUPS:
-            if any(k in low for k in keys):
-                groups[gname] += us
-                break
-        else:
-            groups['other'] += us
+    kern, groups, by_name, n_by_name = group_kernels(prof)
     for name in LANES[lane][2]:
         require(groups[f'{name} kernel'] > 0, f'profile: no device time '
                 f'matched the {name} kernel group on the {lane} lane')
@@ -2789,8 +2839,10 @@ def rank_worker(plan_path: str) -> int:
         kernels.reset_launches()
         t0 = time.perf_counter()
         try:
-            out = (tp_probe(job) if job['module'] == 'probe' else
-                   importlib.import_module(job['module']).main(job['argv']))
+            with femasr_b2_routes(f"rank {rank} {job['name']}"):
+                out = (tp_probe(job) if job['module'] == 'probe' else
+                       importlib.import_module(job['module']).main(
+                           job['argv']))
         finally:
             os.chdir(cwd)
         dev = (torch.device('cuda', torch.cuda.current_device())
@@ -3592,6 +3644,242 @@ def tp_launches(tp: dict, name: str) -> dict:
             r[name] for r in tp['c']['launches_per_rank']['dp2_tp2']])
 
 
+# -- phase 10: SwinIR (A12a) ---------------------------------------------------
+
+# The four published SwinIR configurations as define_model in
+# main_test_swinir.py of the SwinIR repository builds them (mlp_ratio 2,
+# resi_connection '1conv'), at full width and depth with seeded weights:
+# name -> (build_network options, LR side of the smoke's input, B2
+# launches a forward). The x4 models take a smooth 256^2 RGB image, the
+# JPEG model a 504^2 grayscale one (5184 windows of 49 tokens).
+SWINIR_M = dict(img_size=64, window_size=8, img_range=1.0, depths=[6] * 6,
+                embed_dim=180, num_heads=[6] * 6, mlp_ratio=2,
+                resi_connection='1conv')
+SWINIR_CONFIGS = {
+    'M_classical_x4': (dict(SWINIR_M, upscale=4, in_chans=3,
+                            upsampler='pixelshuffle'), 256, 36),
+    'M_realworld_x4': (dict(SWINIR_M, upscale=4, in_chans=3,
+                            upsampler='nearest+conv'), 256, 36),
+    'S_lightweight_x4': (dict(SWINIR_M, upscale=4, in_chans=3,
+                              depths=[6] * 4, embed_dim=60,
+                              num_heads=[6] * 4,
+                              upsampler='pixelshuffledirect'), 256, 24),
+    'M_jpeg_car': (dict(SWINIR_M, upscale=1, in_chans=1, img_size=126,
+                        window_size=7, img_range=255.0, upsampler=''),
+                   504, 36),
+}
+# B2 at the shapes those inputs give it: (windows, N, C, heads, side of the
+# padded map, window), q, k, v column slices of one packed qkv as in the
+# model (C = 180: 4-byte aligned head slices)
+SWINIR_ATTN = {
+    'SwinIR-M x4': (1024, 64, 180, 6, 256, 8),
+    'SwinIR-S x4': (1024, 64, 60, 6, 256, 8),
+    'SwinIR-M CAR': (5184, 49, 180, 6, 504, 7),
+}
+# the whole model through the kernels against the plain versions: f32 max
+# abs; bf16 PSNR against the f32 plain output, the kernels within this of
+# the plain bf16 run's (B2 keeps its logits in f32 either way, so the two
+# round at the same points)
+SWINIR_F32_ATOL = 1e-4
+SWINIR_BF16_PSNR_SLACK_DB = 0.5
+
+
+def attention_case(dev, g, b_, n, c, nh, side, ws, with_mask, dtype):
+    """One B2 case: packed qkv slices (q scaled), the bias and the shift
+    mask of a side x side map; the kernel against its plain version, its
+    time, the plain version's, SDPA's with the bias as attn_mask, and the
+    bound. Returns the numbers and whether they agree."""
+    from femasr_torch.kernels import window_attention as mod
+    from femasr_torch.kernels.tolerance import bf16_agreement
+    from femasr_torch.ops.swin import shifted_window_mask
+    hd = c // nh
+    qkv = torch.randn((b_, n, 3 * c), generator=g, device=dev).to(dtype)
+    q = qkv[..., :c] * torch.tensor(hd ** -0.5, dtype=dtype)
+    k, v = qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.randn((nh, n, n), generator=g, device=dev) * 0.02
+    mask = (torch.from_numpy(shifted_window_mask(side, side, ws, ws // 2))
+            .to(dev) if with_mask else None)
+    with counting_off(mod):
+        y = mod.window_attention(q, k, v, bias, mask, nh)
+        sync(dev)
+        ref = mod.window_attention_plain(q, k, v, bias, mask, nh)
+        if dtype == torch.float32:
+            tol = '1e-5'
+            err = (y - ref).abs().max().item()
+            ok = torch.allclose(y, ref, atol=1e-5, rtol=1e-5)
+            beyond = None
+        else:
+            # one flipped probability (p < 1, ulp(p) <= 2^-8) moves an
+            # output by at most 2^-8 max|v|
+            atol = 2.0 ** -8 * v.float().abs().max().item()
+            ok, err, beyond = bf16_agreement(y, ref, atol)
+            tol = (f'one bf16 ulp, {beyond:.2e} of outputs beyond it '
+                   f'(<= 1e-3), by <= {atol:.2e}')
+        ms = time_ms(lambda: mod.window_attention(q, k, v, bias, mask, nh))
+    plain_ms = time_ms(lambda: mod.window_attention_plain(q, k, v, bias,
+                                                          mask, nh))
+    heads = [t.reshape(b_, n, nh, hd).transpose(1, 2) for t in (q, k, v)]
+    am = bias[None].expand(b_, nh, n, n)
+    if mask is not None:
+        am = am + mask.repeat(b_ // mask.shape[0], 1, 1)[:, None]
+    am = am.to(dtype)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *heads, attn_mask=am, scale=1.0))
+    bms, by = bound_ms(nbytes(q, k, v, y, bias, mask),
+                       4.0 * b_ * nh * n * n * hd, dtype)
+    return dict(ok=ok, max_abs_err=err, tol=tol, share_beyond_one_ulp=beyond,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, b2_route=mod.route_of(q, k, v, nh))
+
+
+def check_swinir_attention(dev, results) -> None:
+    """B2 at every SwinIR shape, with and without the shift mask, in f32
+    and bf16 (the padded tensor-core route), against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    shapes = {}
+    for label, (b_, n, c, nh, side, ws) in SWINIR_ATTN.items():
+        cases = {}
+        for with_mask in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                r = attention_case(dev, g, b_, n, c, nh, side, ws, with_mask,
+                                   dtype)
+                print(f'[swinir] window_attention {label} ({b_},{n},{c}) '
+                      f'{nh} heads mask={with_mask} {str(dtype)[6:]} route '
+                      f'{r["b2_route"]}: max_abs_err={r["max_abs_err"]:.3e} '
+                      f'(tol {r["tol"]}) ms={r["ms"]:.4f} '
+                      f'plain_ms={r["plain_ms"]:.4f} '
+                      f'library_ms={r["library_ms"]:.4f} (SDPA) '
+                      f'bound_ms={r["bound_ms"]:.4f} ({r["bound_by"]})',
+                      flush=True)
+                require(r['ok'], f'window_attention {label} mask={with_mask} '
+                                 f'{dtype}: kernel disagrees with plain '
+                                 f'({r["max_abs_err"]})')
+                cases[f'{"mask" if with_mask else "nomask"}_'
+                      f'{str(dtype)[6:]}'] = {
+                    k: v for k, v in r.items() if k not in ('ok', 'tol')}
+        shapes[label] = dict(shape=f'q,k,v ({b_},{n},{c}), {nh} heads',
+                             **cases)
+    results['window_attention']['swinir'] = shapes
+
+
+def swinir_input(cfg: dict, side: int, dev) -> torch.Tensor:
+    """The smoke's seeded smooth image, grayscale for one channel."""
+    img = torch.from_numpy(smooth_image(np.random.default_rng(21), side,
+                                        side)).float().div(255)
+    x = img.permute(2, 0, 1)[None]
+    if cfg['in_chans'] == 1:
+        x = x.mean(1, keepdim=True)
+    return x.to(dev)
+
+
+def expected_launches(cfg: dict, b2: int, dtype) -> dict:
+    """A forward launches B2 once a block and, in bf16, act_bf16 once a
+    block (the MLP's GELU, rounded as JAX rounds); no other kernel."""
+    from femasr_torch import kernels
+    want = {name: 0 for name in kernels.MODULES}
+    want['window_attention'] = b2
+    if dtype == torch.bfloat16:
+        want['act_bf16'] = sum(cfg['depths'])
+    return want
+
+
+def profile_swinir(dev, model, x, name: str, tag: str, ms: float) -> dict:
+    """Device time by kernel group of one warm forward (torch.profiler),
+    and the idle share against the forward's time `ms`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from femasr_torch import kernels
+    with counting_off(*kernels.MODULES.values()), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        model(x)
+        sync(dev)
+    kern, groups, _, _ = group_kernels(prof)
+    busy = sum(groups.values()) / 1e3
+    top = {k: v / 1e3 for k, v in sorted(groups.items(),
+                                         key=lambda kv: -kv[1]) if v}
+    print(f'[swinir] profile {name} {tag}: {len(kern)} kernels, device busy '
+          f'{busy:.2f} ms of {ms:.2f} ms (idle {1 - busy / ms:.1%}); '
+          + ', '.join(f'{k} {v:.2f}' for k, v in top.items()), flush=True)
+    return dict(kernels=len(kern), device_busy_ms=busy,
+                idle_share=1 - busy / ms, groups_ms=top)
+
+
+def swinir_phase(dev) -> dict:
+    """The four published configurations through build_network, once in
+    f32 and once in bf16: launches of one forward (counts zeroed just
+    before, read just after), ms per forward and peak memory, the whole
+    model through the kernels against the plain versions."""
+    from femasr_torch import kernels
+    from femasr_torch.models import build_network, init_weights
+    out = {}
+    for name, (cfg, side, b2) in SWINIR_CONFIGS.items():
+        net = build_network(dict(cfg, type='SwinIR')).to(dev).eval()
+        init_weights(net, torch.Generator().manual_seed(20))
+        net16 = build_network(dict(cfg, type='SwinIR', dtype='bfloat16'))
+        net16.load_state_dict(net.state_dict())
+        net16 = net16.to(dev).eval()
+        x = swinir_input(cfg, side, dev)
+        scale = cfg['upscale']
+        entry = dict(input=list(x.shape))
+        refs = {}
+        with torch.inference_mode():
+            for tag, model in (('f32', net), ('bf16', net16)):
+                dtype = model.dtype
+                kernels.reset_launches()
+                y = model(x)
+                sync(dev)
+                counts = kernels.launch_counts()
+                want = expected_launches(cfg, b2, dtype)
+                require(counts == want, f'SwinIR {name} {tag}: launches '
+                                        f'{counts}, want {want}')
+                require(tuple(y.shape) == (1, cfg['in_chans'], side * scale,
+                                           side * scale)
+                        and torch.isfinite(y).all().item(),
+                        f'SwinIR {name} {tag}: output {tuple(y.shape)} not '
+                        'finite or of the wrong shape')
+                with plain_kernels():
+                    ref = model(x)
+                sync(dev)
+                refs[tag] = (y.float(), ref.float())
+                with counting_off(*kernels.MODULES.values()):
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    ms = time_ms(lambda: model(x), reps=3, warm=1)
+                    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                entry[tag] = dict(launches_per_forward={
+                    k: v for k, v in counts.items() if v}, ms_per_forward=ms,
+                    peak_memory_gib=peak,
+                    profile=profile_swinir(dev, model, x, name, tag, ms))
+                del y, ref
+        (y32, ref32), (y16, ref16) = refs['f32'], refs['bf16']
+        err = (y32 - ref32).abs().max().item()
+        psnr_k, psnr_p = psnr_db(y16, ref32), psnr_db(ref16, ref32)
+        entry['f32']['max_abs_err_vs_plain'] = err
+        entry['bf16'].update(psnr_kernels_vs_f32_plain_db=psnr_k,
+                             psnr_plain_vs_f32_plain_db=psnr_p)
+        print(f'[swinir] {name} {tuple(x.shape)} -> x{scale}: f32 '
+              f'{entry["f32"]["ms_per_forward"]:.2f} ms/forward, peak '
+              f'{entry["f32"]["peak_memory_gib"]:.2f} GiB, launches '
+              f'{entry["f32"]["launches_per_forward"]}, kernels vs plain max '
+              f'abs {err:.3e} (tol {SWINIR_F32_ATOL}); bf16 '
+              f'{entry["bf16"]["ms_per_forward"]:.2f} ms/forward, peak '
+              f'{entry["bf16"]["peak_memory_gib"]:.2f} GiB, launches '
+              f'{entry["bf16"]["launches_per_forward"]}, PSNR vs the f32 '
+              f'plain output: kernels {psnr_k:.3f} dB, plain {psnr_p:.3f} dB',
+              flush=True)
+        require(err <= SWINIR_F32_ATOL, f'SwinIR {name} f32: the kernels '
+                                        f'differ from the plain versions by '
+                                        f'{err}')
+        require(psnr_k >= psnr_p - SWINIR_BF16_PSNR_SLACK_DB,
+                f'SwinIR {name} bf16: the kernels lose more than '
+                f'{SWINIR_BF16_PSNR_SLACK_DB} dB to the plain versions '
+                f'({psnr_k:.3f} vs {psnr_p:.3f})')
+        out[name] = entry
+        del net, net16, refs, y32, ref32, y16, ref16
+        torch.cuda.empty_cache()
+    return out
+
+
 def tensor_core_counts() -> dict:
     """Tensor-core instructions in the SASS of each kernel library, from
     cuobjdump: HMMA / IMMA (mma.sync, float / integer), HGMMA / IGMMA
@@ -3669,6 +3957,10 @@ def main() -> int:
         require(sum(tc_counts[name].values()) > 0,
                 f'{name}: no tensor-core instruction in its SASS')
 
+    def stamp(done: str) -> None:
+        print(f'[time] {done} at {time.time() - t0:.1f} s', flush=True)
+
+    stamp('build')
     results = {}
     check_conv3(dev, results)
     check_window_attention(dev, results)
@@ -3678,20 +3970,30 @@ def main() -> int:
     check_matmul_w8a8_q(dev, results)
     check_conv3_w8a8(dev, results)
     check_act_bf16(dev, results)
+    check_swinir_attention(dev, results)
+    stamp('kernel checks (phase 2)')
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as work:
-        counts, extra = main_path(dev, work)
-    for lane in LANES:
-        extra[lane]['profile'] = profile_forward(dev, lane)
+    with femasr_b2_routes('serving lanes and their profiles'):
+        with tempfile.TemporaryDirectory() as work:
+            counts, extra = main_path(dev, work)
+        stamp('main path (phase 3)')
+        for lane in LANES:
+            extra[lane]['profile'] = profile_forward(dev, lane)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as work:
+    stamp('profiles (phase 4)')
+    swinir = swinir_phase(dev)
+    stamp('SwinIR (phase 10)')
+    with femasr_b2_routes('training, validation, dp and tp'), \
+            tempfile.TemporaryDirectory() as work:
         train = train_phase(dev, work)
     check_train_shapes(dev, results)
+    stamp('training, BSRGAN, dp and tp (phases 5-9)')
 
     for name, how in REDESIGNED.items():
         print(f'[history] {name}: redesigned {how}; its earlier times stand '
               f'in PERF.md', flush=True)
-    line = {'kernels': [], 'main_path': extra, 'train': train}
+    line = {'kernels': [], 'main_path': extra, 'train': train,
+            'swinir': swinir}
     for name in kernels.MODULES:
         r = results[name]
         # launches: the main-path run of the lane that ported the kernel
@@ -3719,6 +4021,10 @@ def main() -> int:
             launches_dp=dp_launches(train['dp'], name),
             # the tensor-parallel runs', per rank (tp phase)
             launches_tp=tp_launches(train['tp'], name),
+            # the SwinIR phase's, per forward, by configuration and dtype
+            launches_swinir={cfg: {tag: e[tag]['launches_per_forward'].get(
+                name, 0) for tag in ('f32', 'bf16')}
+                for cfg, e in swinir.items()},
             # the validation path's, per image, and test_cli's
             launches_validation=dict(
                 {f'{stage}_per_image': train[stage][

@@ -1,5 +1,5 @@
 """femasr_torch: the PyTorch/CUDA port of FeMaSR serving, training and
-evaluation.
+evaluation, and of the SwinIR model family (models/swinir_arch.py).
 
 Counterpart of femasr_tpu (the JAX reference) with the same module layout
 (ops/, models/, losses/, metrics/, train/, data/, utils/). Its Pallas TPU

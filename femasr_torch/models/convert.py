@@ -3,7 +3,8 @@ reference-format checkpoint loading (strict, or overlaid onto a seeded
 init as the JAX package's merge_params does).
 
 `femasr_param_mapping` is this package's copy of the flax-path -> torch-key
-table of femasr_tpu/models/convert.py; `from_flax` applies it backwards:
+table of femasr_tpu/models/convert.py (`swinir_param_mapping` SwinIR's);
+`from_flax` (`swinir_from_flax`) applies it backwards:
 conv kernels (kh, kw, I, O) -> (O, I, kh, kw), dense kernels (I, O) ->
 (O, I), norm scale -> weight. `discriminator_from_flax`, `vgg_from_flax`,
 `lpips_from_flax` and `inception_from_flax` carry the training and metric
@@ -145,6 +146,53 @@ def from_flax(params: Mapping[str, Any], codebook_params,
     """
     return _apply(params, femasr_param_mapping(codebook_params,
                                                **arch_kwargs))
+
+
+def swinir_param_mapping(depths=(6, 6, 6, 6), upsampler: str = '',
+                         upscale: int = 2, patch_norm: bool = True,
+                         ape: bool = False) -> Mapping_:
+    """Flax path -> (torch key, flax-to-torch transform) for SwinIR: the
+    inverse of femasr_tpu/models/swinir_arch.py convert_swinir_checkpoint,
+    with every upsampler's keys (resi_connection '1conv')."""
+    m: Mapping_ = {}
+    m.update(_conv_entries(('conv_first',), 'conv_first'))
+    if patch_norm:
+        m[('patch_embed_norm', 'scale')] = ('patch_embed.norm.weight', _ident)
+        m[('patch_embed_norm', 'bias')] = ('patch_embed.norm.bias', _ident)
+    if ape:
+        m[('absolute_pos_embed',)] = ('absolute_pos_embed', _ident)
+    for i, depth in enumerate(depths):
+        for k in range(depth):
+            m.update(_swin_block_entries(
+                (f'layers_{i}', 'residual_group', f'blocks_{k}'),
+                f'layers.{i}.residual_group.blocks.{k}'))
+        m.update(_conv_entries((f'layers_{i}', 'conv'), f'layers.{i}.conv'))
+    m[('norm', 'scale')] = ('norm.weight', _ident)
+    m[('norm', 'bias')] = ('norm.bias', _ident)
+    m.update(_conv_entries(('conv_after_body',), 'conv_after_body'))
+    if upsampler in ('pixelshuffle', 'nearest+conv'):
+        m.update(_conv_entries(('conv_before_upsample',),
+                               'conv_before_upsample.0'))
+    if upsampler == 'pixelshuffle':
+        steps = (1 if upscale == 3 else int(math.log2(upscale)))
+        for i in range(steps):
+            m.update(_conv_entries(('upsample', f'conv_{i}'),
+                                   f'upsample.{2 * i}'))
+    elif upsampler == 'pixelshuffledirect':
+        m.update(_conv_entries(('upsample_conv',), 'upsample.0'))
+    elif upsampler == 'nearest+conv':
+        for name in ('conv_up1', 'conv_up2', 'conv_hr'):
+            m.update(_conv_entries((name,), name))
+    if upsampler != 'pixelshuffledirect':
+        m.update(_conv_entries(('conv_last',), 'conv_last'))
+    return m
+
+
+def swinir_from_flax(params: Mapping[str, Any],
+                     **arch_kwargs) -> Dict[str, torch.Tensor]:
+    """JAX SwinIR params (nested dict of arrays) -> the port's SwinIR state
+    dict; arch_kwargs as for swinir_param_mapping."""
+    return _apply(params, swinir_param_mapping(**arch_kwargs))
 
 
 def _apply(tree: Mapping[str, Any], mapping: Mapping_

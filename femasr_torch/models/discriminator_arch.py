@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.layers import Conv2d
+from ..ops.layers import Conv2d, leaky_relu
 
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -80,13 +80,6 @@ class SpectralConv2d(nn.Module):
         sigma = torch.dot(u, self._w_mat() @ v)
         return F.conv2d(x, (self.weight_orig / sigma).to(x.dtype), None,
                         self.stride, self.padding)
-
-
-def leaky_relu(y: torch.Tensor) -> torch.Tensor:
-    """jax.nn.leaky_relu(y, 0.2), whose weakly typed 0.2 takes y's dtype:
-    F.leaky_relu with the slope rounded to that dtype (given 0.2 itself it
-    would multiply a bf16 tensor by the f32 0.2)."""
-    return F.leaky_relu(y, float(torch.tensor(0.2, dtype=y.dtype)))
 
 
 def upsample_bilinear(y: torch.Tensor) -> torch.Tensor:

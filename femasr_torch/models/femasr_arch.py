@@ -329,8 +329,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init (reference initializers) from an explicit generator.
 
     Conv / linear weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
-    norms ones / zeros, relative-position tables N(0, 0.02) clipped at 2
-    std, codebooks U(-1/n_e, 1/n_e). A tensor-parallel model's split
+    norms ones / zeros, relative-position tables (and SwinIR's absolute
+    position embedding) N(0, 0.02) clipped at 2 std, codebooks
+    U(-1/n_e, 1/n_e). A tensor-parallel model's split
     parameters are drawn at their whole shapes and keep the rank's part:
     every rank and the unsplit model draw the same stream.
     """
@@ -358,7 +359,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.copy_(draw(name, vals / shape[0]))
         elif isinstance(owner, nn.PReLU):
             p.fill_(0.25)
-        elif leaf == 'relative_position_bias_table':
+        elif leaf in ('relative_position_bias_table',
+                      'absolute_pos_embed'):
             p.copy_(draw(name, (torch.randn(shape, generator=generator)
                                 * 0.02).clamp(-0.04, 0.04)))
         elif isinstance(owner, (nn.Conv2d, nn.Linear)):

@@ -2,9 +2,11 @@
 
 Counterpart of femasr_tpu/ops/layers.py (GroupNorm, NormLayer, ActLayer,
 ResBlock, upsample_nearest as Upsample, resize_nearest, CombineQuantBlock,
-and UpConv3 as the Upsample + Conv2d pair of the Sequentials), plus the
-int8 serving layers (quantize_rows, Conv3Int8 as Conv2dInt8, DenseInt8 as
-LinearInt8, ResBlockInt8 as ResBlock(int8=True)). Tensors are NCHW;
+and UpConv3 as the Upsample + Conv2d pair of the Sequentials; leaky_relu
+with JAX's slope rounding; JAX's pixel_shuffle / pixel_unshuffle are
+F.pixel_shuffle / F.pixel_unshuffle, whose channel order c*r^2 + dy*r + dx
+is the same), plus the int8 serving layers (quantize_rows, Conv3Int8 as
+Conv2dInt8, DenseInt8 as LinearInt8, ResBlockInt8 as ResBlock(int8=True)). Tensors are NCHW;
 parameters stay float32 and are cast to the activation dtype at use, so
 one model serves in float32 or bfloat16. Submodule names follow the
 reference torch state-dict keys (`conv.0.norm`, `conv.2`, ...); the int8
@@ -200,6 +202,13 @@ class NormLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """jax.nn.leaky_relu(x, slope), whose weakly typed slope takes x's
+    dtype: F.leaky_relu with the slope rounded to that dtype (given 0.2
+    itself it would multiply a bf16 tensor by the f32 0.2)."""
+    return F.leaky_relu(x, float(torch.tensor(slope, dtype=x.dtype)))
 
 
 def silu_gelu(x: torch.Tensor, act: str,

@@ -1,6 +1,11 @@
 """Swin-transformer ops: window helpers, (S)W-MSA blocks, RSTB, SwinLayers.
 
-Counterpart of femasr_tpu/ops/swin.py (spatial layout only). Parameter
+Counterpart of femasr_tpu/ops/swin.py (spatial layout only): any dim,
+head count, window, MLP ratio, qkv bias and qk scale (FeMaSR's Swin at
+window 8, 8 heads of 32; SwinIR's at window 8 or 7, 6 heads of 30 or 10).
+A block's window is clamped to its nominal input resolution as JAX's
+`_clamped` does, and its shift mask is built for the (padded) size it is
+called at. Parameter
 names follow the reference torch keys (`swin_blks.{j}.residual_group.
 blocks.{k}.attn.qkv.weight`, ...). The attention core runs through the
 window-attention kernel; the qkv / proj / MLP linears are nn.Linear, or
@@ -151,13 +156,20 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim: int, window_size: Tuple[int, int],
                  num_heads: int, int8_linears: bool = False,
-                 tp: Optional[ModelAxis] = None):
+                 tp: Optional[ModelAxis] = None, *, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
         super().__init__()
+        if dim % num_heads:
+            raise ValueError(f'dim {dim} is not a multiple of {num_heads} '
+                             'heads')
         split = (not int8_linears and tp is not None
                  and tp.splits(num_heads))
+        if not qkv_bias and (int8_linears or split):
+            raise ValueError('qkv_bias=False: the int8 and tensor-parallel '
+                             'qkv layers always carry a bias')
         # the heads this rank computes
         self.num_heads = num_heads // tp.size if split else num_heads
-        self.scale = (dim // num_heads) ** -0.5
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(torch.zeros(
             (2 * window_size[0] - 1) * (2 * window_size[1] - 1),
             self.num_heads))
@@ -171,8 +183,9 @@ class WindowAttention(nn.Module):
             self.qkv = LinearInt8(dim, dim * 3)
             self.proj = LinearInt8(dim, dim)
             return
-        self.qkv = Linear.split(dim, dim * 3, tp, 'column', num_heads,
-                                blocks=3)
+        self.qkv = (Linear.split(dim, dim * 3, tp, 'column', num_heads,
+                                 blocks=3) if qkv_bias
+                    else Linear(dim, dim * 3, bias=False))
         self.proj = Linear.split(dim, dim, tp, 'row', num_heads)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -205,7 +218,8 @@ class SwinTransformerBlock(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
                  int8_linears: bool = False, int8_mlp: bool = False,
-                 tp: Optional[ModelAxis] = None):
+                 tp: Optional[ModelAxis] = None, *, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
         super().__init__()
         if min(input_resolution) <= window_size:
             shift_size = 0
@@ -214,10 +228,11 @@ class SwinTransformerBlock(nn.Module):
         self.shift_size = shift_size
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, (window_size, window_size),
-                                    num_heads, int8_linears, tp)
+                                    num_heads, int8_linears, tp,
+                                    qkv_bias=qkv_bias, qk_scale=qk_scale)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, 4 * dim, int8=int8_linears, chain=int8_mlp,
-                       tp=tp)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), int8=int8_linears,
+                       chain=int8_mlp, tp=tp)
 
     def forward(self, x: torch.Tensor,
                 differentiable: bool = False) -> torch.Tensor:
@@ -249,14 +264,15 @@ class BasicLayer(nn.Module):
                  depth: int, num_heads: int, window_size: int,
                  int8_linears: bool = False, int8_mlp: bool = False,
                  use_checkpoint: bool = False,
-                 tp: Optional[ModelAxis] = None):
+                 tp: Optional[ModelAxis] = None, **block_kw):
+        """block_kw: mlp_ratio, qkv_bias, qk_scale of the blocks."""
         super().__init__()
         self.use_checkpoint = use_checkpoint
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(dim, input_resolution, num_heads,
                                  window_size,
                                  0 if i % 2 == 0 else window_size // 2,
-                                 int8_linears, int8_mlp, tp)
+                                 int8_linears, int8_mlp, tp, **block_kw)
             for i in range(depth)])
 
     def forward(self, x: torch.Tensor,
@@ -279,12 +295,12 @@ class RSTB(nn.Module):
                  depth: int, num_heads: int, window_size: int,
                  int8_linears: bool = False, int8_mlp: bool = False,
                  use_checkpoint: bool = False,
-                 tp: Optional[ModelAxis] = None):
+                 tp: Optional[ModelAxis] = None, **block_kw):
         super().__init__()
         self.residual_group = BasicLayer(dim, input_resolution, depth,
                                          num_heads, window_size,
                                          int8_linears, int8_mlp,
-                                         use_checkpoint, tp)
+                                         use_checkpoint, tp, **block_kw)
         self.conv = Conv2d(dim, dim, 3, 1, 1)
 
     def forward(self, x: torch.Tensor,

@@ -60,7 +60,8 @@ def test_conv3_plain_matches_ws2d_kernel(prologue, dtype, jdtype):
     kw_j, kw_t = {}, {}
     if prologue:
         gn = GroupNormWs2DAffine(num_groups=32, eps=1e-6)
-        params = randomize(gn.init(jax.random.PRNGKey(0), xj)['params'], 1)
+        params = randomize(jax.eval_shape(
+            gn.init, jax.random.PRNGKey(0), xj)['params'], 1)
         a, bb = gn.apply({'params': params}, xj)          # (B, 2C) ws2d
         kw_j = dict(pre_scale=a, pre_bias=bb, pre_act='silu')
         c = x.shape[-1]
@@ -106,7 +107,8 @@ def test_groupnorm_affine_matches_ws2d_affine():
     x, _, _ = _inputs(2, 8, 16, 64, 64)
     xj = to_ws2d(jnp.asarray(x))
     gn = GroupNormWs2DAffine(num_groups=32, eps=1e-6)
-    params = randomize(gn.init(jax.random.PRNGKey(0), xj)['params'], 3)
+    params = randomize(jax.eval_shape(
+        gn.init, jax.random.PRNGKey(0), xj)['params'], 3)
     a, bb = gn.apply({'params': params}, xj)
     tgn = TGroupNorm(32, 64)
     tgn.load_state_dict({'weight': torch.tensor(params['scale']),
@@ -124,8 +126,9 @@ def test_resblock_matches_flax(kernel):
     rng = np.random.default_rng(4)
     x = rng.normal(size=(1, 12, 16, 64)).astype(np.float32)
     blk = ResBlock(64, 64, 'gn', 'silu')
-    params = randomize(blk.init(jax.random.PRNGKey(0), jnp.asarray(x))
-                       ['params'], 5, std=0.05)
+    params = randomize(jax.eval_shape(
+        blk.init, jax.random.PRNGKey(0), jnp.asarray(x))['params'], 5,
+        std=0.05)
     ref = blk.apply({'params': params}, jnp.asarray(x))
     tblk = TResBlock(64, 64, 'gn', 'silu', kernel=kernel)
     tblk.load_state_dict(carry(params, _resblock_entries((), 'm', 'silu'),

@@ -5,6 +5,7 @@ rel 2e-3 as for the slice."""
 
 import copy
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import cv2
 import jax.numpy as jnp
@@ -40,6 +41,29 @@ def pair():
     return jsr, sr
 
 
+# the inputs of the JAX comparisons (jax_refs)
+PADDED = np.random.default_rng(0).random((1, 30, 31, 3), dtype=np.float32)
+TILED = np.random.default_rng(1).random((1, 40, 44, 3), dtype=np.float32)
+_rng = np.random.default_rng(2)
+BUCKETED = [_rng.random((20, 22, 3), dtype=np.float32),
+            _rng.random((18, 30, 3), dtype=np.float32)]
+
+
+@pytest.fixture(scope='module')
+def jax_refs(pair):
+    """The JAX SRInferencer's whole-image, tiled and bucketed outputs,
+    started together in threads: XLA compiles one program while another
+    traces and the port's side of the tests runs."""
+    jsr = pair[0]
+    with ThreadPoolExecutor(3) as pool:
+        yield {
+            'padded': pool.submit(
+                lambda: np.asarray(jsr.run_padded(jnp.asarray(PADDED)))),
+            'tiled': pool.submit(lambda: np.asarray(jsr.run_tiled(
+                jnp.asarray(TILED), tile_size=24, tile_pad=4))),
+            'bucketed': pool.submit(jsr.run_bucketed, BUCKETED, bucket=32)}
+
+
 def _rel(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
@@ -50,32 +74,27 @@ def test_flip_pad_matches_jax():
     np.testing.assert_array_equal(nhwc(flip_pad(nchw(x), 3, 2)), ref)
 
 
-def test_run_padded_matches_jax(pair):
-    jsr, sr = pair
-    img = np.random.default_rng(0).random((1, 30, 31, 3), dtype=np.float32)
-    ref = np.asarray(jsr.run_padded(jnp.asarray(img)))
-    out = nhwc(sr.run_padded(nchw(img)))
+def test_run_padded_matches_jax(pair, jax_refs):
+    _, sr = pair
+    out = nhwc(sr.run_padded(nchw(PADDED)))
+    ref = jax_refs['padded'].result()
     assert out.shape == ref.shape == (1, 120, 124, 3)
     assert _rel(out, ref) < 2e-3
 
 
-def test_run_tiled_matches_jax(pair):
-    jsr, sr = pair
-    img = np.random.default_rng(1).random((1, 40, 44, 3), dtype=np.float32)
-    ref = np.asarray(jsr.run_tiled(jnp.asarray(img), tile_size=24,
-                                   tile_pad=4))
-    out = nhwc(sr.run_tiled(nchw(img), tile_size=24, tile_pad=4))
+def test_run_tiled_matches_jax(pair, jax_refs):
+    _, sr = pair
+    out = nhwc(sr.run_tiled(nchw(TILED), tile_size=24, tile_pad=4))
+    ref = jax_refs['tiled'].result()
     assert out.shape == ref.shape == (1, 160, 176, 3)
     assert _rel(out, ref) < 2e-3
 
 
-def test_dispatcher_and_bucketed_match_jax(pair):
-    jsr, sr = pair
-    rng = np.random.default_rng(2)
-    imgs = [rng.random((20, 22, 3), dtype=np.float32),
-            rng.random((18, 30, 3), dtype=np.float32)]
-    ref = jsr.run_bucketed(imgs, bucket=32)
+def test_dispatcher_and_bucketed_match_jax(pair, jax_refs):
+    _, sr = pair
+    imgs = BUCKETED
     out = sr.run_bucketed(imgs, bucket=32)
+    ref = jax_refs['bucketed'].result()
     for o, r in zip(out, ref):
         assert o.shape == r.shape
         assert _rel(o, r) < 2e-3
@@ -105,7 +124,7 @@ def test_load_inferencer_reads_reference_pth(tmp_path, pair, key):
                                rtol=0, atol=0)
 
 
-def test_non_strict_load_overlays_a_seeded_init(pair, capsys):
+def test_non_strict_load_overlays_a_seeded_init(pair, jax_refs, capsys):
     """A state dict with keys the model lacks (a use_semantic_loss
     checkpoint's conv_semantic.0.*), a missing key and a mis-shaped tensor
     loads as the JAX package's merge_params loads it: the extras are
@@ -125,7 +144,8 @@ def test_non_strict_load_overlays_a_seeded_init(pair, capsys):
                         'conv_semantic.0.bias': torch.ones(8)})
 
     # the same input shape as test_run_padded_matches_jax: no new compile
-    img = np.random.default_rng(0).random((1, 30, 31, 3), dtype=np.float32)
+    jax_refs['padded'].result()
+    img = PADDED
     ref = np.asarray(jsr1.run_padded(jnp.asarray(img)))
     sr1 = SRInferencer(extra, codebook_params=SMALL, device='cpu')
     out = nhwc(sr1.run_padded(nchw(img)))

@@ -73,6 +73,10 @@ def test_window_attention_kernel_matches_plain(gen, dtype, tol, b_, nh,
     qkv = torch.randn(b_, 64, 3 * c, generator=gen).cuda().to(dtype)
     q = qkv[..., :c] * 32 ** -0.5
     k, v = qkv[..., c:2 * c], qkv[..., 2 * c:]
+    # FeMaSR's shape: the N = 64, head_dim 32 tensor-core kernel in bf16
+    assert window_attention.route_of(q, k, v, nh) == (
+        window_attention.F32 if dtype == torch.float32
+        else window_attention.TC64)
     bias = torch.randn(nh, 64, 64, generator=gen).cuda() * 0.1
     mask = torch.from_numpy(shifted_window_mask(side, side, 8, 4)).cuda()
     for m in (None, mask):
@@ -86,6 +90,56 @@ def test_window_attention_kernel_matches_plain(gen, dtype, tol, b_, nh,
             # one flipped p (< 1, ulp <= 2^-8): 2^-8 * max|v|
             assert_bf16_close(out, ref,
                               2.0 ** -8 * v.float().abs().max().item())
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, None)])
+@pytest.mark.parametrize('b_,n,c,nh,offset', [
+    (8, 64, 180, 6, 0),     # SwinIR-M: head_dim 30, 4-byte aligned slices
+    (8, 64, 60, 6, 0),      # SwinIR-S: head_dim 10
+    (8, 49, 180, 6, 0),     # SwinIR-M JPEG: N 49
+    (4, 49, 42, 6, 0),      # head_dim 7: odd, element loads
+    (4, 64, 96, 2, 0),      # head_dim 48: an odd count of k-steps
+    (4, 36, 128, 2, 0),     # head_dim 64, N 36
+    (4, 1, 16, 1, 0),       # one token a window
+    (8, 64, 256, 8, 1)])    # FeMaSR's shape, misaligned: the padded route
+def test_window_attention_any_shape_matches_plain(gen, dtype, tol, b_, n, c,
+                                                  nh, offset):
+    qkv = torch.randn(b_, n, 3 * c + offset, generator=gen).cuda().to(
+        dtype)[..., offset:]
+    q = qkv[..., :c] * (c // nh) ** -0.5
+    k, v = qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.randn(nh, n, n, generator=gen).cuda() * 0.1
+    side = {49: (14, 7), 64: (16, 8)}.get(n)
+    masks = [None]
+    if side is not None:
+        masks.append(torch.from_numpy(shifted_window_mask(
+            side[0], side[0], side[1], side[1] // 2)).cuda())
+    else:   # a random 0 / -100 mask over 2 windows, the diagonal kept
+        m = (torch.rand(2, n, n, generator=gen) < 0.3).float() * -100.0
+        masks.append(m.masked_fill(torch.eye(n, dtype=torch.bool), 0.0)
+                     .cuda())
+    want = (window_attention.F32 if dtype == torch.float32 else
+            window_attention.TC)
+    assert window_attention.route_of(q, k, v, nh) == want
+    for m in masks:
+        out = window_attention.window_attention(q, k, v, bias, m, nh)
+        ref = window_attention.window_attention_plain(q, k, v, bias, m, nh)
+        assert out.dtype == dtype and out.shape == (b_, n, c)
+        if tol is not None:
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+        else:
+            assert_bf16_close(out, ref,
+                              2.0 ** -8 * v.float().abs().max().item())
+
+
+def test_window_attention_refuses_beyond_its_limits(gen):
+    for n, c, nh in ((81, 64, 2), (64, 130, 2)):
+        q = torch.zeros(2, n, c, device='cuda')
+        with pytest.raises(ValueError, match='N <= 64 tokens'):
+            window_attention.window_attention(
+                q, q, q, torch.zeros(nh, n, n, device='cuda'), None, nh)
 
 
 def test_vq_argmin_kernel_matches_plain(gen):

@@ -54,8 +54,9 @@ def test_femasr_slice_matches_jax(lq, scale):
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-4)
 
     # decode_indices on the same codes
-    dec_j = jnet.apply({'params': params}, idx_j[0],
-                       method=JFeMaSRNet.decode_indices)
+    dec_j = jax.jit(lambda p, i: jnet.apply(
+        {'params': p}, i, method=JFeMaSRNet.decode_indices))(params,
+                                                             idx_j[0])
     with torch.no_grad():
         dec = net.decode_indices(idx[0])
     dec_j = np.asarray(dec_j)

@@ -110,6 +110,8 @@ def served(tmp_path_factory):
     started = (start_ranks(tp2, str(root / 'out_tp2'), 2),
                start_ranks(w1, str(root / 'out_w1'), 0))
     jax_out = _jax_tp_outputs(sd, imgs)     # while the ranks run
+    for codebook in (RELEASE, SMALL):       # test_split_parameters_...'s
+        _jax_shapes(_frozen(codebook))
     two, one = wait_ranks(*started, timeout=120)
     return {'root': root, 'jax': jax_out, 'two': two, 'one': one}
 
@@ -262,10 +264,14 @@ def _jax_shapes(codebook):
         jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))['params']
 
 
+def _frozen(codebook):
+    return tuple(tuple(p) for p in codebook)
+
+
 def _jax_split_keys(codebook, tp):
     """Torch keys of the leaves that the JAX package's param_shardings
     shards on a (1, tp) mesh."""
-    shapes = _jax_shapes(tuple(tuple(p) for p in codebook))
+    shapes = _jax_shapes(_frozen(codebook))
     mesh = jcreate_mesh(data=1, model=tp, devices=jax.devices()[:tp])
     specs = flatten_dict(param_shardings(mesh, shapes))
     mapping = femasr_param_mapping(codebook, LQ_stage=True, scale_factor=4)

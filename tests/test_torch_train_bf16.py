@@ -54,9 +54,13 @@ NEAR_TIE = 1e-3
 
 
 def strict(f, *args):
-    """f(*args) compiled with XLA's excess precision off."""
+    """f(*args) compiled with XLA's excess precision off (at the CPU
+    backend's optimization level 0, as torch_port_util.jit_quick: the
+    same HLO, so the same rounding points, compiled faster)."""
     return jax.jit(f).lower(*args).compile(compiler_options={
-        'xla_allow_excess_precision': False})(*args)
+        'xla_allow_excess_precision': False,
+        'xla_backend_optimization_level': 0,
+        'xla_llvm_disable_expensive_passes': True})(*args)
 
 
 def rel_l2(a, b) -> float:

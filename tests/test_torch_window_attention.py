@@ -16,7 +16,7 @@ from femasr_torch.models.convert import _conv_entries, _swin_block_entries
 from femasr_torch.ops import swin as tswin
 from femasr_tpu.ops import swin as jswin
 from femasr_tpu.ops.pallas.window_attention import window_attention_fused
-from torch_port_util import carry, nchw, nhwc, randomize
+from torch_port_util import carry, jit_quick, nchw, nhwc, randomize
 
 
 def _qkv(seed, b_, n, c):
@@ -108,9 +108,10 @@ def test_window_attention_module_matches_flax(with_mask):
     mask = jswin.shifted_window_mask(16, 16, 8, 4) if with_mask else None
     x = np.random.default_rng(3).normal(size=(8, 64, dim)).astype(np.float32)
     mod = jswin.WindowAttention(dim=dim, window_size=(8, 8), num_heads=nh)
-    params = randomize(mod.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                                mask=mask)['params'], 4)
-    ref = mod.apply({'params': params}, jnp.asarray(x), mask=mask)
+    params = randomize(jax.eval_shape(lambda: mod.init(
+        jax.random.PRNGKey(0), jnp.asarray(x), mask=mask))['params'], 4)
+    ref = jit_quick(lambda p, v: mod.apply(p, v, mask=mask),
+                    {'params': params}, jnp.asarray(x))
     tmod = tswin.WindowAttention(dim, (8, 8), nh)
     entries = {p[1:]: v for p, v in _swin_block_entries((), 'b').items()
                if p[0] == 'attn'}
@@ -130,9 +131,9 @@ def test_swin_block_matches_flax(shift):
     blk = jswin.SwinTransformerBlock(dim=dim, input_resolution=(32, 32),
                                      num_heads=nh, window_size=8,
                                      shift_size=shift)
-    params = randomize(blk.init(jax.random.PRNGKey(0), jnp.asarray(x))
-                       ['params'], 6)
-    ref = blk.apply({'params': params}, jnp.asarray(x))
+    params = randomize(jax.eval_shape(lambda: blk.init(
+        jax.random.PRNGKey(0), jnp.asarray(x)))['params'], 6)
+    ref = jit_quick(blk.apply, {'params': params}, jnp.asarray(x))
     tblk = tswin.SwinTransformerBlock(dim, (32, 32), nh, 8, shift)
     assert tblk.shift_size == shift
     tblk.load_state_dict(carry(params, _swin_block_entries((), 'b'), 'b'),
@@ -149,9 +150,9 @@ def test_rstb_matches_flax():
         np.float32)
     blk = jswin.RSTB(dim=dim, input_resolution=(32, 32), depth=depth,
                      num_heads=nh, window_size=8)
-    params = randomize(blk.init(jax.random.PRNGKey(0), jnp.asarray(x))
-                       ['params'], 8, std=0.05)
-    ref = blk.apply({'params': params}, jnp.asarray(x))
+    params = randomize(jax.eval_shape(lambda: blk.init(
+        jax.random.PRNGKey(0), jnp.asarray(x)))['params'], 8, std=0.05)
+    ref = jit_quick(blk.apply, {'params': params}, jnp.asarray(x))
     entries = _conv_entries(('conv',), 'r.conv')
     for i in range(depth):
         entries.update(_swin_block_entries(

@@ -50,6 +50,18 @@ def carry(params, entries, prefix: str):
     return sd
 
 
+def jit_quick(fn, *args):
+    """fn(*args) jitted with XLA's CPU backend at optimization level 0: the
+    same HLO program, compiled in about a third of the time where LLVM's
+    passes dominate the compile (small programs; a large one runs slower
+    unoptimized). It may contract a multiply-add that level 3 leaves
+    apart: a last-bit f32 difference. XLA's excess precision is off, so
+    bf16 values round where the JAX source rounds them."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        'xla_backend_optimization_level': 0,
+        'xla_allow_excess_precision': False})(*args)
+
+
 def nchw(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
