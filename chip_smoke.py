@@ -6,8 +6,8 @@
 Phases:
   1. build the seven CUDA kernels from femasr_torch/csrc (nvcc, in
      parallel: the six ports of the JAX package's Pallas kernels and the
-     port's own act_bf16) and count the tensor-core instructions in each
-     library's SASS;
+     port's own act_bf16), with the shard store's host library (g++), and
+     count the tensor-core instructions in each kernel library's SASS;
   2. hold each kernel against its plain PyTorch version at the shapes the
      x4 release model gives it for a 512x512 LR image, in f32 (TF32 off)
      and bf16 (B1, B2: within one bf16 ulp, see
@@ -55,7 +55,12 @@ Phases:
      on net_g_best gives the metrics of the validation that saved it
      (1e-4 dB, 1e-5) and writes the images;
   6. the BSRGAN data (A9), both configurations as shipped on the seeded GT
-     folder (BSRGANTrainDataset, their workers): the LQ stage of
+     packed into a .fmrs shard by `python -m
+     femasr_torch.scripts.create_shard` (BSRGANTrainDataset, their
+     persistent workers, batches staged on the card by the trainer's
+     DevicePrefetcher; the LQ run's loader gives the folder's batches
+     bit for bit over two epochs, staged with no synchronizing op): the
+     LQ stage of
      options/train_FeMaSR_LQ_stage_ondevice.yml for 8 iterations with the
      LQ synthesized on the card (B1 5 and B3 2 launches per iteration, no
      other kernel; resumed at 4 and held to the uninterrupted run, 1e-3),
@@ -66,9 +71,16 @@ Phases:
      1e-4, the rest in at most 1% of the final JPEG's 16x16 blocks); the
      HQ stage of options/train_FeMaSR_HQ_pretrain_stage.yml for 4
      iterations with its 8 workers degrading on the host (B3 1 per
-     iteration) and a timed host pass over the train set; ms per
-     iteration, images/s, idle share, the loop's wait for data and peak
-     memory of both;
+     iteration, at its shipped dataset_enlarge_ratio 1) and a timed host
+     pass over the train set; ms per iteration, images/s, idle share, the
+     loop's wait for data and peak memory of both; then a host pass at
+     DIV2K sub-image scale (256 480^2 tiles cut by extract_subimages, as
+     a folder and a 177 MB shard, with persistent and restarted workers:
+     items/s and each epoch's time to its first batch), and
+     `python -m femasr_torch.generate_dataset --device cuda` on the 16
+     GT crops (images/s; its files equal the LQ rounded to 8 bits; the
+     card's LQ against the CPU's under the same draws, the degradation's
+     gate);
   7. bf16 and checkpointed training (A8b, A8c), run inside phase 5 before
      phase 6: both release stages with network_g and network_d in
      bfloat16 through train_cli, with their val blocks (per iteration: LQ
@@ -2181,12 +2193,21 @@ def train_phase(dev, work: str) -> dict:
               f'{t["reps"]} synchronized warm iterations)', flush=True)
     del model
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+
+    def lap(done: str) -> None:
+        print(f'[time] {done}: {time.perf_counter() - t0:.1f} s into the '
+              f'phases after the f32 runs', flush=True)
     out.update(bf16_phase(dev, work, inputs, vals, out))
+    lap('bf16 (phase 7)')
     out.update(bsrgan_phase(dev, work, inputs, {
         stage: out[stage]['timing']['ms_per_iteration']
         for stage in ('lq', 'hq')}))
+    lap('BSRGAN data, shard store and host pass (phase 6)')
     out['dp'] = dp_phase(dev, work, inputs, vals)
+    lap('dp (phase 8)')
     out['tp'] = tp_phase(dev, work, inputs)
+    lap('tp (phase 9)')
     return out
 
 
@@ -2660,16 +2681,284 @@ def worker_pass(opt: dict) -> dict:
                 max_ms=float(np.max(ms)), ms=ms)
 
 
+# the data path's remainder: the seeded GT folder packed into a .fmrs shard
+# (python -m femasr_torch.scripts.create_shard) feeds both BSRGAN runs, the
+# on-device LQ run at BSRGAN_ENLARGE (two epochs of its loader held to the
+# folder's batches bit for bit, staged on the card by DevicePrefetcher
+# under set_sync_debug_mode('error')) and the HQ run at its shipped ratio 1
+# (an epoch every 2 iterations: persistent workers carry over). The host
+# pass: HOST_PASS_TILES sub-images of HOST_PASS_SIDE^2, cut by
+# python -m femasr_torch.scripts.extract_subimages from seeded images of
+# DIV2K's size (40 tiles each at crop 480, step 240), as a folder and as a
+# shard, through the on-device config's train loader for 2 epochs.
+# generate_dataset --device cuda degrades the GEN_CROPS seeded GT crops
+# and is held to the CPU under the same draws over GEN_DRAWS draws.
+DIV2K_HW = (1356, 2040)
+HOST_PASS_IMAGES, HOST_PASS_TILES, HOST_PASS_SIDE = 7, 256, 480
+GEN_SEED, GEN_DRAWS = 3, 16
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_module(*args: str) -> float:
+    """python -m <args> from the repository root; its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f'python -m {" ".join(args)} failed: {proc.stderr[-3000:]}')
+    return time.perf_counter() - t0
+
+
+def pack_shard(folder: str, shard: str) -> dict:
+    seconds = run_module('femasr_torch.scripts.create_shard', '--input',
+                         folder, '--output', shard)
+    return dict(shard=shard, pack_seconds=seconds,
+                bytes=os.path.getsize(shard))
+
+
+@contextlib.contextmanager
+def count_prefetched(staged: list):
+    """Every batch a DevicePrefetcher hands over inside the block appends
+    whether its tensors are on the card."""
+    from femasr_torch.data.loader import DevicePrefetcher
+    orig = DevicePrefetcher._hand_over
+
+    def hand_over(self, batch, ready):
+        staged.append(all(v.is_cuda for v in batch.values()
+                          if isinstance(v, torch.Tensor)))
+        return orig(self, batch, ready)
+    DevicePrefetcher._hand_over = hand_over
+    try:
+        yield
+    finally:
+        DevicePrefetcher._hand_over = orig
+
+
+def shard_batches_equal_folder(dev, data: dict, folder: str, seed: int,
+                               epochs: int = 2) -> dict:
+    """The train loader of `data` (a shard root) for `epochs` epochs, each
+    batch staged on the card by DevicePrefetcher with
+    set_sync_debug_mode('error') on, against the loader of the same
+    options on `folder` (host only): the GT bit for bit, the keys in the
+    same order."""
+    from femasr_torch.data import (DevicePrefetcher, build_dataset,
+                                   build_train_loader)
+    sopt = dict(data, phase='train', scale=4)
+    fopt = dict(sopt, dataroot_gt=folder)
+    shard_loader, shard_sampler = build_train_loader(
+        build_dataset(sopt), sopt, seed, device=dev)
+    folder_loader, folder_sampler = build_train_loader(
+        build_dataset(fopt), fopt, seed)
+    require(shard_loader.persistent_workers == (shard_loader.num_workers > 0),
+            'the train loader does not keep its workers')
+    prefetcher = DevicePrefetcher(shard_loader, dev)
+    batches = 0
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        folder_sampler.start(epoch)
+        shard_sampler.start(epoch)
+        want = list(folder_loader)
+        sync(dev)
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = list(prefetcher)
+        except RuntimeError as e:
+            raise PhaseError(f'the prefetcher synchronized: {e}') from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        require(len(got) == len(want) > 0,
+                f'epoch {epoch}: {len(got)} shard batches, {len(want)} '
+                'folder batches')
+        for a, b in zip(got, want):
+            require([p.rsplit(':', 1)[1] for p in a['gt_path']]
+                    == [os.path.splitext(os.path.relpath(p, folder))[0]
+                        for p in b['gt_path']]
+                    and a['gt'].device.type == dev.type
+                    and torch.equal(a['gt'].cpu(), b['gt']),
+                    f'epoch {epoch}: a shard batch differs from the '
+                    'folder\'s')
+        batches += len(got)
+    out = dict(epochs=epochs, batches=batches, equal=True,
+               seconds=time.perf_counter() - t0,
+               workers=shard_loader.num_workers,
+               persistent_workers=shard_loader.persistent_workers,
+               prefetch_factor=shard_loader.prefetch_factor,
+               pin_memory=shard_loader.pin_memory)
+    print(f'[data] {batches} batches of epochs 0-{epochs - 1} from the '
+          f'shard, staged on the card by DevicePrefetcher under '
+          f'set_sync_debug_mode(error), equal the folder\'s bit for bit '
+          f'({out["workers"]} persistent workers, prefetch_factor '
+          f'{out["prefetch_factor"]}, pinned {out["pin_memory"]})',
+          flush=True)
+    del prefetcher, shard_loader, folder_loader
+    gc.collect()
+    return out
+
+
+def host_pass(dev, work: str) -> dict:
+    """BSRGANTrainDataset items/s with the on-device config's train options
+    (batch 8, 8 workers, the release loader) over 2 epochs of
+    HOST_PASS_TILES sub-images: from a folder and from a shard, with
+    persistent and with restarted workers; each epoch's time to its first
+    batch."""
+    import cv2
+
+    from femasr_torch.data import build_dataset, build_train_loader
+    src = os.path.join(work, 'div2k_size')
+    os.makedirs(src)
+    rng = np.random.default_rng(21)
+    for i in range(HOST_PASS_IMAGES):
+        cv2.imwrite(os.path.join(src, f'{i:04d}.png'),
+                    smooth_image(rng, *DIV2K_HW))
+    tiles = os.path.join(work, 'sub_all')
+    cut_s = run_module('femasr_torch.scripts.extract_subimages', '--input',
+                       src, '--output', tiles, '--crop_size',
+                       str(HOST_PASS_SIDE), '--step', str(HOST_PASS_SIDE // 2),
+                       '--thresh_size', '0', '--n_thread', '8')
+    names = sorted(os.listdir(tiles))
+    require(len(names) >= HOST_PASS_TILES, f'{len(names)} sub-images cut')
+    folder = os.path.join(work, 'sub')
+    os.makedirs(folder)
+    for n in names[:HOST_PASS_TILES]:
+        os.replace(os.path.join(tiles, n), os.path.join(folder, n))
+    packed = pack_shard(folder, os.path.join(work, 'sub.fmrs'))
+    data = load_yml(LQ_ONDEVICE_YML)['datasets']['train']
+    out = dict(tiles=HOST_PASS_TILES, side=HOST_PASS_SIDE,
+               images_cut=len(names), cut_seconds=cut_s, **packed,
+               batch=data['batch_size_per_gpu'],
+               workers=data['num_worker_per_gpu'], runs={})
+    for root_name, root in (('folder', folder), ('shard', packed['shard'])):
+        for persistent in (True, False):
+            dopt = dict(data, phase='train', scale=4, dataroot_gt=root)
+            dataset = build_dataset(dopt)
+            loader, sampler = build_train_loader(dataset, dopt, 0, device=dev)
+            if not persistent:
+                loader = torch.utils.data.DataLoader(
+                    dataset, batch_size=loader.batch_size, sampler=sampler,
+                    num_workers=loader.num_workers, drop_last=True,
+                    pin_memory=loader.pin_memory,
+                    generator=torch.Generator().manual_seed(0),
+                    persistent_workers=False,
+                    prefetch_factor=loader.prefetch_factor)
+            first, items = [], 0
+            t0 = time.perf_counter()
+            for epoch in range(2):
+                sampler.start(epoch)
+                te = time.perf_counter()
+                for k, batch in enumerate(loader):
+                    if k == 0:
+                        first.append((time.perf_counter() - te) * 1e3)
+                    items += batch['gt'].shape[0]
+            seconds = time.perf_counter() - t0
+            name = f'{root_name}_{"persistent" if persistent else "restarted"}'
+            out['runs'][name] = dict(items=items, seconds=seconds,
+                                     items_per_s=items / seconds,
+                                     first_batch_ms=first)
+            print(f'[data] host pass, {name} workers: {items} items of '
+                  f'{HOST_PASS_SIDE}^2 sub-images in {seconds:.2f} s, '
+                  f'{items / seconds:.1f} items/s (batch {out["batch"]}, '
+                  f'{out["workers"]} workers, gt {dopt["gt_size"]}); time '
+                  f'to the first batch of each epoch '
+                  + ', '.join(f'{v:.1f}' for v in first) + ' ms', flush=True)
+            del loader
+            gc.collect()
+    print(f'[data] host pass: {len(names)} sub-images cut from '
+          f'{HOST_PASS_IMAGES} seeded {DIV2K_HW[1]}x{DIV2K_HW[0]} images in '
+          f'{cut_s:.1f} s (extract_subimages), {HOST_PASS_TILES} packed into '
+          f'a {packed["bytes"] / 1e6:.1f} MB shard in '
+          f'{packed["pack_seconds"]:.1f} s (create_shard)', flush=True)
+    return out
+
+
+def generate_on_card(dev, work: str, gt_folder: str) -> dict:
+    """python -m femasr_torch.generate_dataset --device cuda on the seeded
+    GT crops (a cold run, then a timed one): images/s, its first batch's
+    files equal to the function's LQ rounded to 8 bits, and the function's
+    LQ (before rounding) on the card against the same draws applied to
+    CPU tensors over GEN_DRAWS draws, with the degradation's gate."""
+    import cv2
+
+    from femasr_torch import generate_dataset as G
+    from femasr_torch.data.data_util import make_dataset
+    from femasr_torch.ops import degradations as D
+    paths = make_dataset(gt_folder)
+    times = []
+    for run in ('cold', 'warm'):
+        out_dir = os.path.join(work, f'generated_{run}')
+        sync(dev)
+        t0 = time.perf_counter()
+        done = G.main(['-i', gt_folder, '-o', out_dir, '-s', '4', '--device',
+                       'cuda', '--batch', '8', '--seed', str(GEN_SEED)])
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        require(done == len(paths), f'generate_dataset wrote {done} images')
+    batches = [G.one_size_batch([G.read_rgb(p) for p in paths[i:i + 8]])
+               for i in range(0, len(paths), 8)]
+    gen = torch.Generator(dev).manual_seed(GEN_SEED)
+    lq, _ = G.synthesize(batches[0].to(dev), gen, 4)
+    written = np.stack([cv2.cvtColor(cv2.imread(os.path.join(
+        out_dir, 'LQ_sub_X4', os.path.relpath(p, gt_folder))),
+        cv2.COLOR_BGR2RGB) for p in paths[:8]])
+    rounded = (lq.clamp(0, 1) * 255).round().to(torch.uint8).permute(
+        0, 2, 3, 1).cpu().numpy()
+    require(np.array_equal(written, rounded),
+            'generate_dataset --device cuda: its files differ from the '
+            'function\'s LQ rounded to 8 bits')
+    good = total = blocks = blocks_bad = 0
+    worst = 0.0
+    for draw in range(GEN_DRAWS):
+        gt = batches[draw % len(batches)]
+        gen = torch.Generator(dev).manual_seed(GEN_SEED + draw)
+        card, draws = G.synthesize(gt.to(dev), gen, 4)
+        ref = D.apply_degradation(gt, draws.to('cpu'), 4)
+        diff = (card.cpu() - ref).abs().amax(dim=1)
+        worst = max(worst, float(diff.max()))
+        good += int((diff <= DEGRADE_TOL).sum())
+        total += diff.numel()
+        n, bad = jpeg_blocks_touched(diff)
+        blocks += n
+        blocks_bad += bad
+    agree = good / total
+    out = dict(images=len(paths), gt_side=int(batches[0].shape[-1]),
+               cold_seconds=times[0], seconds=times[1],
+               images_per_s=len(paths) / times[1],
+               files_equal_rounded_lq=True, card_vs_cpu=dict(
+                   draws=GEN_DRAWS, pixels_within=agree, max_abs_diff=worst,
+                   jpeg_blocks_touched=blocks_bad, jpeg_blocks=blocks))
+    print(f'[generate] generate_dataset --device cuda, {len(paths)} '
+          f'{out["gt_side"]}^2 GT crops, batch 8: {times[1]:.3f} s warm '
+          f'({out["images_per_s"]:.1f} images/s; cold {times[0]:.3f} s), '
+          f'read, degraded on the card and written as PNG; its files equal '
+          f'the LQ rounded to 8 bits; card vs CPU over {GEN_DRAWS} draws '
+          f'handed to both: {100 * agree:.4f}% of LQ pixels within '
+          f'{DEGRADE_TOL} (need {100 * DEGRADE_AGREE}%), max {worst:.3e}, '
+          f'beyond it in {blocks_bad} of {blocks} JPEG 16x16 blocks (at '
+          f'most {100 * DEGRADE_BLOCK_SHARE}%)', flush=True)
+    require(agree >= DEGRADE_AGREE and blocks_bad <= DEGRADE_BLOCK_SHARE
+            * blocks, f'generate_dataset card vs CPU: {out["card_vs_cpu"]}')
+    return out
+
+
 def bsrgan_phase(dev, work: str, inputs: dict, paired_ms: dict) -> dict:
     """The two training configurations that need the BSRGAN data, as
-    shipped: the LQ stage with on-device degradation (8 iterations, resumed
-    at 4), the degradation alone, and the HQ stage with the workers'
-    host degradation (4 iterations). Their ms per iteration are printed
-    beside `paired_ms`, the same stages' on the paired data."""
+    shipped, with their GT from a shard of the seeded folder through
+    DevicePrefetcher and persistent workers: the LQ stage with on-device
+    degradation (8 iterations, resumed at 4; its loader's first two epochs
+    held to the folder's), the degradation alone, and the HQ stage with
+    the workers' host degradation (4 iterations). Their ms per iteration
+    are printed beside `paired_ms`, the same stages' on the paired data.
+    Then the host pass at DIV2K sub-image scale and generate_dataset on
+    the card."""
     from femasr_torch import kernels
     out = {}
+    shard = pack_shard(inputs['gt'], os.path.join(work, 'gt.fmrs'))
+    print(f'[data] {TRAIN_IMAGES} seeded GT images packed into a '
+          f'{shard["bytes"] / 1e6:.2f} MB shard by create_shard in '
+          f'{shard["pack_seconds"]:.1f} s', flush=True)
+    out['shard'] = shard
 
-    # LQ stage, on-device degradation, its BSRGANTrainDataset and workers
+    # LQ stage, on-device degradation, its BSRGANTrainDataset and workers,
+    # its GT from the shard through DevicePrefetcher
     opt = release_options(LQ_ONDEVICE_YML, 'smoke_lq_ondevice', inputs,
                           LQ_ITERS, LQ_SAVE_AT, as_shipped=True)
     opt['path'] = {'pretrain_network_hq': inputs['hq'],
@@ -2678,11 +2967,20 @@ def bsrgan_phase(dev, work: str, inputs: dict, paired_ms: dict) -> dict:
     require(data['type'] == 'BSRGANTrainDataset'
             and data['on_device_degradation'],
             f'{LQ_ONDEVICE_YML}: train set {data}')
-    data['dataset_enlarge_ratio'] = BSRGAN_ENLARGE
-    model, full, run = bsrgan_run(dev, work, opt, 'lq')
+    data.update(dataset_enlarge_ratio=BSRGAN_ENLARGE,
+                dataroot_gt=shard['shard'])
+    out['shard_batches'] = shard_batches_equal_folder(
+        dev, data, inputs['gt'], opt['manual_seed'])
+    staged = []
+    with count_prefetched(staged):
+        model, full, run = bsrgan_run(dev, work, opt, 'lq')
     require(model.degrade_on_device and model.cri_perceptual is not None
             and model.use_dis, 'on-device LQ stage: degradation, LPIPS or '
             'GAN loss off')
+    run['prefetched_batches'] = len(staged)
+    require(dev.type != 'cuda' or (len(staged) >= LQ_ITERS and all(staged)),
+            f'on-device LQ stage: {len(staged)} batches came through the '
+            f'prefetcher for {LQ_ITERS} iterations')
     state = os.path.join(work, 'experiments', opt['name'], 'training_states',
                          f'{LQ_SAVE_AT}.state')
     with counting_off(*kernels.MODULES.values()):
@@ -2724,9 +3022,15 @@ def bsrgan_phase(dev, work: str, inputs: dict, paired_ms: dict) -> dict:
     require(data['type'] == 'BSRGANTrainDataset'
             and not data.get('on_device_degradation'),
             f'{HQ_YML}: train set {data}')
-    data['dataset_enlarge_ratio'] = BSRGAN_ENLARGE
-    model, _, run = bsrgan_run(dev, work, opt, 'hq')
+    data['dataroot_gt'] = shard['shard']      # its shipped ratio: 1
+    staged = []
+    with count_prefetched(staged):
+        model, _, run = bsrgan_run(dev, work, opt, 'hq')
     run['workers'] = int(data['num_worker_per_gpu'])
+    run['dataset_enlarge_ratio'] = data.get('dataset_enlarge_ratio', 1)
+    run['prefetched_batches'] = len(staged)
+    require(dev.type != 'cuda' or (len(staged) >= HQ_ITERS and all(staged)),
+            f'HQ stage: {len(staged)} batches came through the prefetcher')
     batch = first_batch(opt)
     require(batch['lq'].shape[-1] * 4 == batch['gt'].shape[-1],
             f'HQ batch lq {batch["lq"].shape} gt {batch["gt"].shape}')
@@ -2756,7 +3060,21 @@ def bsrgan_phase(dev, work: str, inputs: dict, paired_ms: dict) -> dict:
     print(f'[train] hq_bsrgan: a train item on the host (read, crop, host '
           f'degradation, flips) median {h["median_ms"]:.1f} ms, max '
           f'{h["max_ms"]:.1f} ms over {h["items"]} items; '
-          f'{out["hq_bsrgan"]["workers"]} workers', flush=True)
+          f'{out["hq_bsrgan"]["workers"]} persistent workers, '
+          f'dataset_enlarge_ratio {out["hq_bsrgan"]["dataset_enlarge_ratio"]}',
+          flush=True)
+    for name in ('lq_ondevice', 'hq_bsrgan'):
+        loop = out[name]['loop']
+        print(f'[data] {name} from the shard through DevicePrefetcher '
+              f'({out[name]["prefetched_batches"]} batches staged): the '
+              f'loop waited for its batch '
+              + ', '.join(f'{w:.1f}' for w in loop['wait_ms'])
+              + f' ms per iteration after the first (median '
+              f'{100 * loop["median_wait_share"]:.1f}% of the iteration); '
+              f'idle share of a profiled iteration '
+              f'{out[name]["profile"]["idle_share"]:.3f}', flush=True)
+    out['host_pass'] = host_pass(dev, work)
+    out['generate_dataset'] = generate_on_card(dev, work, inputs['gt'])
     return out
 
 
@@ -3942,9 +4260,9 @@ def main() -> int:
           f'{torch.__version__} cuda {torch.version.cuda}', flush=True)
 
     t0 = time.time()
-    kernels.build_all()
-    print(f'[build] {len(kernels.MODULES)} kernels in '
-          f'{time.time() - t0:.1f}s', flush=True)
+    _build.build([*kernels.MODULES, 'shardstore'])
+    print(f'[build] {len(kernels.MODULES)} kernels and the shard store\'s '
+          f'host library (g++) in {time.time() - t0:.1f}s', flush=True)
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:

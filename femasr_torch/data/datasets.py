@@ -2,7 +2,11 @@
 loader.py): PairedImageDataset for training and validation,
 BSRGANTrainDataset (GT only, LQ synthesized by the BSRGAN degradation in
 the workers or on the device) for training and SingleImageDataset (LQ only)
-for evaluation, through plain torch DataLoaders.
+for evaluation. A train or paired root is an image folder or a `.fmrs`
+shard (`ImageSource`; a shard's paths read `root:key`). The train loader
+keeps its workers across epochs and, on a card, pins its batches, which
+the trainer's `DevicePrefetcher` (`data/loader.py`) copies to the card on
+a stream of its own while the previous step runs.
 
 Randomness is explicit and independent of the worker count: the sampler
 (`EpochSampler`) yields (index, seed) items, and the dataset draws its
@@ -10,12 +14,14 @@ crop, flips and (BSRGANTrainDataset) degradation from
 numpy.random.default_rng(seed), the seed being (manual_seed, epoch,
 position in the epoch). The order of an epoch is a permutation from
 (manual_seed, epoch). So a run resumed at iteration k sees the batches the
-uninterrupted run saw (`EpochSampler.start`).
+uninterrupted run saw (`EpochSampler.start`), and an item read from a
+shard equals the item read from the folder the shard was packed from.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -25,6 +31,7 @@ from torch.utils.data import DataLoader, Dataset, Sampler
 from ..utils.matlab_functions import rgb2ycbcr
 from .data_util import make_dataset, paths_from_folder
 from .degradations import degradation_bsrgan
+from .shardstore import FMRS_SUFFIX, ShardStoreReader
 from .transforms import augment, paired_random_crop, random_crop
 
 
@@ -47,38 +54,63 @@ def _chw(img: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1)))
 
 
-def _folder(root: str):
-    if root.endswith('.fmrs'):
-        raise NotImplementedError(
-            f'{root}: the JAX package\'s .fmrs shard store is not ported; '
-            'give an image folder')
-    return make_dataset(root)
+class ImageSource:
+    """The images of a root: an image folder (recursively, sorted) or a
+    `.fmrs` shard (paths `root:key`, in the shard's order). `get(i)` is
+    HWC float32 RGB in [0, 1]; a shard's uint8 / 255 equals the folder
+    image it was packed from. The shard is mapped once per process, when
+    it is first read there (a pickled or forked copy in a loader worker
+    maps it itself)."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self._reader, self._pid = None, None
+        if root.endswith(FMRS_SUFFIX):
+            self.paths = [f'{root}:{k}' for k in self.reader().keys()]
+        else:
+            self.paths = make_dataset(root)
+
+    def reader(self) -> ShardStoreReader:
+        if self._pid != os.getpid():
+            self._reader, self._pid = ShardStoreReader(self.root), os.getpid()
+        return self._reader
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def get(self, idx: int) -> np.ndarray:
+        if self.root.endswith(FMRS_SUFFIX):
+            return self.reader().read(idx).astype(np.float32) / 255.0
+        return read_rgb(self.paths[idx])
+
+    def __getstate__(self) -> dict:
+        return dict(self.__dict__, _reader=None, _pid=None)
 
 
 class PairedImageDataset(Dataset):
-    """LQ/GT pairs from two folders, paired by sorted order. In the train
-    phase: use_resize_crop (a random rescale of both, then matching
-    gt_size crops), use_flip, use_rot. In the val and test phases the whole
-    images, or with crop_eval_size a matching crop of that GT size (drawn
-    from the item's index). Items are dicts of (3, H, W) float32 tensors in
-    [0, 1] and the two paths."""
+    """LQ/GT pairs from two roots (folders or shards), paired by order. In
+    the train phase: use_resize_crop (a random rescale of both, then
+    matching gt_size crops), use_flip, use_rot. In the val and test phases
+    the whole images, or with crop_eval_size a matching crop of that GT
+    size (drawn from the item's index). Items are dicts of (3, H, W)
+    float32 tensors in [0, 1] and the two paths."""
 
     def __init__(self, opt: dict):
         self.opt = opt
-        self.gt_paths = _folder(opt['dataroot_gt'])
-        self.lq_paths = _folder(opt['dataroot_lq'])
-        if len(self.gt_paths) != len(self.lq_paths):
-            raise ValueError(f'{len(self.gt_paths)} GT images but '
-                             f'{len(self.lq_paths)} LQ images')
+        self.gt_src = ImageSource(opt['dataroot_gt'])
+        self.lq_src = ImageSource(opt['dataroot_lq'])
+        if len(self.gt_src) != len(self.lq_src):
+            raise ValueError(f'{len(self.gt_src)} GT images but '
+                             f'{len(self.lq_src)} LQ images')
 
     def __len__(self) -> int:
-        return len(self.gt_paths)
+        return len(self.gt_src)
 
     def __getitem__(self, item) -> Dict:
         index, seed = item if isinstance(item, tuple) else (item, (item,))
         rng = np.random.default_rng(seed)
-        gt_path, lq_path = self.gt_paths[index], self.lq_paths[index]
-        img_gt, img_lq = read_rgb(gt_path), read_rgb(lq_path)
+        gt_path, lq_path = self.gt_src.paths[index], self.lq_src.paths[index]
+        img_gt, img_lq = self.gt_src.get(index), self.lq_src.get(index)
         if self.opt['phase'] == 'train':
             gt_size = self.opt['gt_size']
             scale = img_gt.shape[0] // img_lq.shape[0]
@@ -133,7 +165,7 @@ class SingleImageDataset(Dataset):
 
 
 class BSRGANTrainDataset(Dataset):
-    """GT images of a folder; the LQ is synthesized by the BSRGAN
+    """GT images of a folder or shard; the LQ is synthesized by the BSRGAN
     degradation. In the train phase: use_resize_crop (a random cubic
     rescale to a side in [gt_size, the image's]), a gt_size crop, then
     use_flip and use_rot. With on_device_degradation the item holds the
@@ -144,16 +176,16 @@ class BSRGANTrainDataset(Dataset):
 
     def __init__(self, opt: dict):
         self.opt = opt
-        self.gt_paths = _folder(opt['dataroot_gt'])
+        self.gt_src = ImageSource(opt['dataroot_gt'])
 
     def __len__(self) -> int:
-        return len(self.gt_paths)
+        return len(self.gt_src)
 
     def __getitem__(self, item) -> Dict:
         index, seed = item if isinstance(item, tuple) else (item, (item,))
         rng = np.random.default_rng(seed)
-        gt_path = self.gt_paths[index]
-        img_gt = read_rgb(gt_path)
+        gt_path = self.gt_src.paths[index]
+        img_gt = self.gt_src.get(index)
         gt_size = self.opt['gt_size']
         flip, rot = self.opt.get('use_flip', False), self.opt.get('use_rot',
                                                                   False)
@@ -226,22 +258,29 @@ class EpochSampler(Sampler):
 
 
 def build_train_loader(dataset: Dataset, opt: dict, seed: int,
-                       pin_memory: bool = False, rank: int = 0,
-                       world_size: int = 1
+                       device=None, rank: int = 0, world_size: int = 1
                        ) -> Tuple[DataLoader, EpochSampler]:
     """A DataLoader of full batches of `batch_size_per_gpu` over an
-    EpochSampler, with `num_worker_per_gpu` workers; with world_size > 1
-    rank `rank`'s blocks of the global batches."""
+    EpochSampler, with `num_worker_per_gpu` workers kept across epochs
+    and num_prefetch_queue batches in flight (the JAX loader's queue:
+    ceil(num_prefetch_queue / workers) a worker); with world_size > 1
+    rank `rank`'s blocks of the global batches. For a CUDA `device` the
+    batches are pinned: the trainer's DevicePrefetcher copies them to the
+    card asynchronously, which needs page-locked host memory."""
     batch = opt['batch_size_per_gpu']
     sampler = EpochSampler(len(dataset), seed,
                            opt.get('dataset_enlarge_ratio', 1), rank,
                            world_size, batch)
     workers = int(opt.get('num_worker_per_gpu', 0))
+    queue = int(opt.get('num_prefetch_queue', 4))
     loader = DataLoader(
         dataset, batch_size=batch, sampler=sampler,
-        num_workers=workers, drop_last=True, pin_memory=pin_memory,
+        num_workers=workers, drop_last=True,
+        pin_memory=device is not None and torch.device(device).type == 'cuda',
         generator=torch.Generator().manual_seed(seed),
-        persistent_workers=False)
+        persistent_workers=workers > 0,
+        prefetch_factor=max(1, math.ceil(queue / workers)) if workers
+        else None)
     return loader, sampler
 
 

@@ -1,7 +1,7 @@
 """Training image transforms (counterpart of femasr_tpu/data/transforms.py):
-random crops of one image or of matching GT/LQ pairs and random flips /
-rotations, on HWC numpy images, each drawing from an explicit
-numpy.random.Generator."""
+`mod_crop`, random crops of one image or of matching GT/LQ pairs and
+random flips / rotations, on HWC numpy images, each drawing from an
+explicit numpy.random.Generator."""
 
 from __future__ import annotations
 
@@ -10,6 +10,14 @@ from typing import List, Sequence, Union
 import numpy as np
 
 Images = Union[np.ndarray, List[np.ndarray]]
+
+
+def mod_crop(img: np.ndarray, scale: int) -> np.ndarray:
+    """A copy of img with H and W cut down to multiples of `scale`."""
+    if img.ndim not in (2, 3):
+        raise ValueError(f'Wrong img ndim: {img.ndim}.')
+    h, w = img.shape[0], img.shape[1]
+    return img[:h - h % scale, :w - w % scale, ...].copy()
 
 
 def random_crop(img: np.ndarray, out_size: int,

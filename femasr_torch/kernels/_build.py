@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each `csrc/<name>.cu` is compiled with nvcc for sm_90a into its own shared
 library with a plain C interface and loaded with ctypes (no PyTorch headers,
-so a build takes seconds). Libraries go to `build/femasr_torch/` at the
-repository root and are rebuilt when the hash of the source and of the
-headers in `csrc/` changes. A failed build raises.
+so a build takes seconds). A host library, `csrc/<name>.cpp` (the `.fmrs`
+shard store), is compiled the same way with g++. Libraries go to
+`build/femasr_torch/` at the repository root and are rebuilt when the hash
+of the source (and, for CUDA, of the headers in `csrc/`) changes; each is
+written under a temporary name and renamed into place. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), 'build', 'femasr_torch')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+GXX_FLAGS = ['-O3', '-std=c++17', '-shared', '-fPIC', '-pthread']
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -37,10 +41,21 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else 'nvcc'
 
 
-def _compile(name: str) -> str:
+def _command(name: str) -> tuple:
+    """(source, files hashed, compiler command) of csrc/<name>.cpp (host
+    C++, g++) or csrc/<name>.cu (CUDA, nvcc)."""
+    cpp = os.path.join(CSRC, f'{name}.cpp')
+    if os.path.exists(cpp):
+        return cpp, [cpp], ['g++', *GXX_FLAGS]
     src = os.path.join(CSRC, f'{name}.cu')
+    return (src, [src] + sorted(glob.glob(os.path.join(CSRC, '*.cuh'))),
+            [_nvcc(), *NVCC_FLAGS])
+
+
+def _compile(name: str) -> str:
+    src, hashed, cmd = _command(name)
     h = hashlib.sha256()
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC, '*.cuh'))):
+    for path in hashed:
         with open(path, 'rb') as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]
@@ -48,10 +63,13 @@ def _compile(name: str) -> str:
     out = os.path.join(BUILD_DIR, f'lib{name}_{digest}.so')
     if not os.path.exists(out):
         tmp = f'{out}.{os.getpid()}.tmp'
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
-                              capture_output=True, text=True)
+        try:
+            proc = subprocess.run([*cmd, '-o', tmp, src],
+                                  capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f'{cmd[0]} failed for {src}: {e}') from e
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed for {src}:\n{proc.stderr}')
+            raise RuntimeError(f'{cmd[0]} failed for {src}:\n{proc.stderr}')
         os.replace(tmp, out)
         build_log[name] = proc.stderr
     return out

@@ -93,6 +93,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 from torch.utils.data import default_collate
 
+from ..data.loader import DevicePrefetcher
 from ..losses import LPIPSLoss, PerceptualLoss, build_loss
 from ..losses.lpips import convert_lpips_checkpoint
 from ..metrics import create_metric
@@ -365,7 +366,14 @@ class FeMaSRModel(BaseModel):
 
     # -- one iteration ---------------------------------------------------
 
+    def wrap_loader(self, loader):
+        """The train loader's batches staged on this model's device by a
+        DevicePrefetcher (on the CPU, as they are)."""
+        return DevicePrefetcher(loader, self.device)
+
     def feed_data(self, data: Mapping[str, Any]) -> None:
+        """The batch's lq (if any) and gt on the device; a batch that the
+        prefetcher staged there is taken as it is (`.to` is a no-op)."""
         nb = self.device.type == 'cuda'
         self.lq = (data['lq'].to(self.device, non_blocking=nb)
                    if data.get('lq') is not None else None)

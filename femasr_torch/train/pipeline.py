@@ -11,8 +11,9 @@ and once more after the last iteration, and resumes from
 `path.resume_state` or, with --auto_resume, from the newest state of the
 experiment. A resumed run sees the batches the uninterrupted run would
 have seen: the loader restarts at the epoch and position of the resumed
-iteration. `test_pipeline` evaluates `path.pretrain_network_g` on each
-dataset of the options.
+iteration. On a card the loop's batches come through the model's
+`DevicePrefetcher` (`wrap_loader`). `test_pipeline` evaluates
+`path.pretrain_network_g` on each dataset of the options.
 
 Data parallel (`--launcher pytorch|slurm`): every rank runs this loop on
 its block of each global batch of batch_size_per_gpu x world size, so an
@@ -113,9 +114,10 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
     val_opt = opt.get('val') if val_loader is not None else None
     world = opt['data_parallel']
     loader, sampler = build_train_loader(
-        train_set, dataset_opt, opt['manual_seed'],
-        pin_memory=model.device.type == 'cuda', rank=opt['data_rank'],
-        world_size=world)
+        train_set, dataset_opt, opt['manual_seed'], device=model.device,
+        rank=opt['data_rank'], world_size=world)
+    # on a card, batch N+1 is copied on a stream of its own during step N
+    batches = model.wrap_loader(loader)
     total_iters = int(float(opt['train']['total_iter']))
     global_batch = dataset_opt['batch_size_per_gpu'] * world
     per_epoch = len(train_set) * dataset_opt.get('dataset_enlarge_ratio', 1) \
@@ -145,7 +147,7 @@ def train_pipeline(root_path: str, argv=None, opt: Optional[dict] = None
     while current_iter < total_iters:
         sampler.start(epoch, skip * global_batch)
         skip = 0
-        for train_data in loader:
+        for train_data in batches:
             data_timer.record()
             prev_iter, current_iter = current_iter, current_iter + 1
             model.feed_data(train_data)

@@ -723,3 +723,47 @@ def test_ddp_world1_nccl_step_equals_the_bare_step(gen, tmp_path,
     assert g2.keys() == g0.keys() and len(g0) > 300
     assert of_max(g2, g0) <= max(1e-6, 2 * spread), (of_max(g2, g0), spread)
     assert ((l2 - l0).abs() <= 1e-6 * l0.abs()).all()
+
+
+def test_device_prefetcher_stages_on_its_own_stream(gen):
+    """DevicePrefetcher: the staged tensors equal the loader's, they come
+    from a copy on a stream other than the caller's (which waits for it),
+    nothing synchronizes (set_sync_debug_mode('error')), and a batch that
+    is not pinned is refused."""
+    from femasr_torch.data.loader import DevicePrefetcher
+    batches = [{'gt': torch.rand((2, 3, 64, 64), generator=gen).pin_memory(),
+                'gt_path': [f'{i}a', f'{i}b']} for i in range(4)]
+    prefetcher = DevicePrefetcher(batches, 'cuda')
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = [(b['gt'] * 2, b['gt_path']) for b in prefetcher]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    side = prefetcher.stream
+    assert side is not None and side != torch.cuda.current_stream()
+    assert [p for _, p in got] == [b['gt_path'] for b in batches]
+    for (y, _), b in zip(got, batches):
+        assert y.is_cuda and torch.equal(y.cpu(), b['gt'] * 2)
+    with pytest.raises(ValueError, match='pinned'):
+        next(iter(DevicePrefetcher([{'gt': torch.zeros(2)}], 'cuda')))
+
+
+def test_shardstore_native_build_reads_on_the_card_machine(gen, tmp_path):
+    """The shard store's C++ library builds with the machine's g++ and its
+    reads and draws equal the numpy twin's."""
+    import numpy as np
+
+    from femasr_torch.data import shardstore
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / 's.fmrs')
+    with shardstore.ShardStoreWriter(path) as w:
+        for i in range(3):
+            w.add(f'k{i}', rng.integers(0, 256, (40 + i, 33, 3), np.uint8))
+    native, plain = (shardstore.ShardStoreReader(path),
+                     shardstore.PlainShardReader(path))
+    assert native.keys() == plain.keys() == ['k0', 'k1', 'k2']
+    assert all(np.array_equal(native.read(i), plain.read(i))
+               for i in range(3))
+    assert np.array_equal(native.sample_batch([2, 0, 1, 2], 32, seed=9),
+                          plain.sample_batch([2, 0, 1, 2], 32, seed=9))

@@ -51,7 +51,10 @@ def _rel(a, b):
 
 
 def _numpy(sd):
-    return {k: v.detach().numpy() for k, v in sd.items()}
+    # copies: a view would let the port's in-place updates (the power
+    # iteration's u and v) reach the JAX reference's inputs, and JAX reads
+    # them asynchronously, after the port's next call when the host is busy
+    return {k: v.detach().numpy().copy() for k, v in sd.items()}
 
 
 def _vgg_params(layers, vgg_type, seed):
